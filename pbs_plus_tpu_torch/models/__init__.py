@@ -1,0 +1,17 @@
+"""Pipelines of the port: the dedup data plane on the card.
+
+- DedupPipeline: whole-stream batched chunk + fingerprint + index probe.
+- CudaChunker + DeviceFeeder: the streaming path, coalescing concurrent
+  writers into one dispatch; ``backends`` selects it for a writer.
+"""
+
+from .dedup import (ChunkRecord, CudaChunker, DedupConfig, DedupPipeline,
+                    StreamResult)
+from .feeder import DeviceFeeder, get_feeder
+from .backends import make_batch_hasher, make_chunker_factory
+
+__all__ = [
+    "DedupPipeline", "DedupConfig", "StreamResult", "ChunkRecord",
+    "CudaChunker", "DeviceFeeder", "get_feeder",
+    "make_chunker_factory", "make_batch_hasher",
+]

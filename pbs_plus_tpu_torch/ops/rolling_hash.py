@@ -1,0 +1,207 @@
+"""Buzhash candidate mask: the CUDA kernel K1 (``csrc/rolling_hash.cu``) and
+its plain PyTorch version.
+
+Counterpart of the JAX package's ``ops/rolling_hash.py`` and
+``ops/pallas_rolling_hash.py``: per byte ``i``,
+
+    h(i) = XOR_{k=0}^{63} rotl32(T[b[i-k]], k mod 32)
+
+and a candidate ends at ``i`` where ``(h & mask) == magic``.  A tensor on a
+CUDA device goes to the kernel; a tensor on the CPU goes to the plain
+version.  Nothing falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..chunker import observe
+from ..chunker.spec import WINDOW, ChunkerParams, buzhash_table, select_cuts
+from ..utils.device import as_u8, host_tensor, resolve
+from ._build import Kernel
+
+_M32 = 0xFFFFFFFF
+
+KERNEL = Kernel("rolling_hash", "rolling_hash_candidate_mask",
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                 ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p])
+
+
+def device_tables(params: ChunkerParams, device="cuda") -> torch.Tensor:
+    """int32[256]: ``buzhash_table(params.seed)`` as uint32 bit patterns,
+    on ``device``."""
+    t = np.ascontiguousarray(buzhash_table(params.seed)).view(np.int32)
+    return torch.from_numpy(t.copy()).to(resolve(device))
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    r &= 31
+    if r == 0:
+        return x
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def candidate_mask_plain(data: torch.Tensor, tables: torch.Tensor, mask: int,
+                         magic: int, history: torch.Tensor | None = None
+                         ) -> torch.Tensor:
+    """The plain PyTorch version of K1, in int64 masked to 32 bits: the
+    table lookup, then log2(W)=6 shift-rotate-XOR doubling passes,
+    ``H_2m(i) = H_m(i) ^ rotl_m(H_m(i-m))``.  ``data`` uint8[B, S],
+    ``history`` uint8[B, 63] or None; returns bool[B, S]."""
+    B, S = data.shape
+    hlen = 0
+    if history is not None:
+        hlen = history.shape[-1]
+        data = torch.cat([history, data], dim=-1)
+    h = (tables.to(torch.int64) & _M32)[data.to(torch.int64)]
+    m = 1
+    while m < WINDOW:
+        shifted = torch.zeros_like(h)
+        shifted[:, m:] = h[:, :-m]
+        h = h ^ _rotl(shifted, m)
+        m *= 2
+    hit = (h & mask) == magic
+    pos = torch.arange(hlen + S, device=data.device)
+    hit &= (pos >= WINDOW - 1)[None, :]
+    return hit[:, hlen:]
+
+
+def _launch(data: torch.Tensor, tables: torch.Tensor, mask: int, magic: int,
+            history: torch.Tensor | None) -> torch.Tensor:
+    B, S = data.shape
+    if B > 65535:
+        raise ValueError(f"at most 65535 rows per launch, got {B}")
+    if tables.dtype != torch.int32 or tables.numel() != 256:
+        raise ValueError("tables must be int32[256]")
+    tables = tables.contiguous()
+    out = torch.empty((B, S), dtype=torch.uint8, device=data.device)
+    KERNEL(data.device.index, data.data_ptr(),
+           history.data_ptr() if history is not None else None,
+           tables.data_ptr(), out.data_ptr(), B, S, mask & _M32, magic & _M32,
+           torch.cuda.current_stream(data.device).cuda_stream)
+    return out.view(torch.bool)
+
+
+def candidate_mask(data: torch.Tensor, tables: torch.Tensor, mask: int,
+                   magic: int, *, history: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+    """Candidate mask of batched stream segments.
+
+    data:    uint8[B, S] or uint8[S]
+    tables:  int32[256] (``device_tables(params)``), on data's device
+    history: optional uint8[B, 63], the bytes preceding each segment.
+             Without it, the first 63 positions of each row are invalid.
+
+    Returns bool[B, S] (bool[S] for 1-D data): True where a chunk cut
+    candidate ends at that byte.  CUDA tensors run kernel K1, CPU tensors
+    the plain version."""
+    squeeze = data.dim() == 1
+    if squeeze:
+        data = data[None]
+    if data.dtype != torch.uint8:
+        raise ValueError(f"data must be uint8, got {data.dtype}")
+    if history is not None:
+        if history.shape != (data.shape[0], WINDOW - 1) \
+                or history.dtype != torch.uint8:
+            raise ValueError(f"history must be uint8[B, {WINDOW - 1}]")
+        if history.device != data.device:
+            raise ValueError("history must be on the data's device")
+    if tables.device != data.device:
+        raise ValueError("tables must be on the data's device")
+    if data.is_cuda:
+        hit = _launch(data.contiguous(), tables, mask, magic,
+                      history.contiguous() if history is not None else None)
+    elif data.device.type == "cpu":
+        hit = candidate_mask_plain(data, tables, mask, magic, history)
+    else:
+        raise ValueError(f"unsupported device {data.device}")
+    return hit[0] if squeeze else hit
+
+
+def candidate_mask_params(data: torch.Tensor, params: ChunkerParams
+                          ) -> torch.Tensor:
+    """bool[B, S] candidate mask for ``params`` with no history: the first
+    63 positions of each row are invalid.  Counterpart of the JAX package's
+    ``candidate_mask_pallas``, as one call of the same kernel."""
+    return candidate_mask(data, device_tables(params, data.device),
+                          params.mask, params.magic)
+
+
+def _as_tensor(b) -> torch.Tensor:
+    return b if isinstance(b, torch.Tensor) else host_tensor(as_u8(b))
+
+
+def _pow2_len(n: int) -> int:
+    return max(1 << 14, 1 << int(n - 1).bit_length()) if n else 1 << 14
+
+
+def batched_candidate_hits(bufs: list, hists: list, tables: torch.Tensor,
+                           params: ChunkerParams) -> list[np.ndarray]:
+    """Pack, dispatch and unpack one cross-stream candidate batch: stack
+    variable-length segments (each with an optional 63-byte history; rows
+    without one get zeros) into a pow2-padded ``[B_pad, S_pad]`` mask on the
+    tables' device, and return each row's raw hit positions (0-based,
+    unfiltered: callers apply their own window-validity and offsets).
+
+    Segments and histories are host arrays, or uint8 tensors, which
+    copy device to device when they already lie on the tables' device.
+    Shared by the DeviceFeeder and the whole-stream DedupPipeline.  On the
+    card the hits are extracted with ``torch.nonzero`` there, and only the
+    positions come back to the host."""
+    B = len(bufs)
+    dev = tables.device
+    observe.add_scan_bytes("cuda" if dev.type == "cuda" else "torch-cpu",
+                           sum(len(b) for b in bufs))
+    S_pad = _pow2_len(max(len(b) for b in bufs))
+    B_pad = 1 << int(B - 1).bit_length() if B > 1 else 1
+    dbuf = torch.zeros((B_pad, S_pad), dtype=torch.uint8, device=dev)
+    dhist = torch.zeros((B_pad, WINDOW - 1), dtype=torch.uint8, device=dev)
+    for i, (b, h) in enumerate(zip(bufs, hists)):
+        if len(b):
+            dbuf[i, :len(b)].copy_(_as_tensor(b))
+        if h is not None:
+            dhist[i].copy_(_as_tensor(h))
+    m = candidate_mask(dbuf, tables, params.mask, params.magic, history=dhist)
+    # nonzero over at most 2**30 elements per call: a [32, 64 MiB] batch
+    # is 2**31, past what torch.nonzero takes in one call on some versions
+    step = max(1, (1 << 30) // S_pad)
+    nz = []
+    for r in range(0, B, step):
+        part = torch.nonzero(m[r:min(r + step, B)]).cpu().numpy()
+        part[:, 0] += r
+        nz.append(part)
+    nz = np.concatenate(nz)
+    rows, cols = nz[:, 0], nz[:, 1]
+    edges = np.searchsorted(rows, np.arange(B + 1))
+    out = []
+    for i, b in enumerate(bufs):
+        c = cols[edges[i]:edges[i + 1]]
+        out.append(c[c < len(b)])
+    return out
+
+
+def candidate_ends_host(data: bytes | np.ndarray, params: ChunkerParams,
+                        *, device="cuda") -> np.ndarray:
+    """Sorted absolute candidate end offsets of one stream (the contract of
+    the CPU chunker's ``candidates`` with no prefix), computed on
+    ``device``."""
+    arr = as_u8(data)
+    dev = resolve(device)
+    n = len(arr)
+    buf = torch.zeros(_pow2_len(n), dtype=torch.uint8, device=dev)
+    if n:
+        buf[:n].copy_(host_tensor(arr))
+    hit = candidate_mask(buf, device_tables(params, dev), params.mask,
+                         params.magic)
+    return (torch.nonzero(hit[:n]).flatten().cpu().numpy() + 1).astype(np.int64)
+
+
+def chunk_stream_device(data: bytes | np.ndarray, params: ChunkerParams,
+                        *, device="cuda") -> list[int]:
+    """Device candidates plus the shared host greedy pass: cut offsets."""
+    return select_cuts(candidate_ends_host(data, params, device=device),
+                       len(data), params)

@@ -62,3 +62,6 @@ def pytest_configure(config):
         "no_fswitness: opt a test out of the default-on fs-protocol "
         "witness (utils/fswitness.py) — for tests that deliberately "
         "write torn files to prove the READER rejects them")
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs the port's kernels on a CUDA device; skips without one")

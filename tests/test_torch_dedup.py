@@ -1,0 +1,179 @@
+"""The port's streaming dedup path on the CPU against the JAX package's:
+the ``CudaChunker`` through the ``DeviceFeeder``, the ``"cuda"`` writer
+backend, the jax-free import gate, and the refusal to run on an absent
+card.  Tolerance is exact.  ``test_torch_pipeline.py`` holds the
+whole-stream ``DedupPipeline``."""
+
+import io
+import os
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from pbs_plus_tpu.chunker import ChunkerParams as RefParams
+from pbs_plus_tpu.chunker import CpuChunker
+from pbs_plus_tpu.models.dedup import TpuChunker
+from pbs_plus_tpu_torch.convert import params_from_reference
+from pbs_plus_tpu_torch.models import (CudaChunker, DedupConfig,
+                                       DedupPipeline, DeviceFeeder,
+                                       make_batch_hasher,
+                                       make_chunker_factory)
+from pbs_plus_tpu_torch.ops import rolling_hash, sha256
+from pbs_plus_tpu_torch.utils.device import CudaUnavailableError
+
+REF_P = RefParams(avg_size=4 << 10)
+P = params_from_reference(REF_P.avg_size, REF_P.min_size, REF_P.max_size,
+                          REF_P.seed)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _data(n, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8
+                                                ).tobytes()
+
+
+def test_cuda_chunker_fed_in_pieces_matches_tpu_chunker():
+    data = _data(300_000, seed=4)
+    for feed in (1 << 14, 99_991):
+        ref, port = TpuChunker(REF_P), CudaChunker(P, device="cpu")
+        got_r, got_p = [], []
+        for off in range(0, len(data), feed):
+            got_r += ref.feed(data[off:off + feed])
+            got_p += port.feed(data[off:off + feed])
+        got_r += ref.finalize()
+        got_p += port.finalize()
+        assert got_p == got_r
+    assert CudaChunker.backend_name == "cuda"
+
+
+def test_feeder_batches_four_streams_like_solo_runs():
+    feeder = DeviceFeeder(linger_s=0.2, device="cpu")
+    bufs = [np.frombuffer(_data(40_000 + i, seed=10 + i), dtype=np.uint8)
+            for i in range(4)]
+    hists = [np.frombuffer(_data(63, seed=20 + i), dtype=np.uint8)
+             for i in range(4)]
+    chunks = [[_data(500 + i, seed=30 + i), _data(70, seed=40 + i)]
+              for i in range(4)]
+    hits, digests, errs = {}, {}, []
+    barrier = threading.Barrier(4)
+
+    def work(i):
+        try:
+            barrier.wait()
+            hits[i] = feeder.candidate_hits(bufs[i], hists[i], P)
+            digests[i] = feeder.sha256_batch(chunks[i])
+        except BaseException as e:
+            errs.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not errs and not any(t.is_alive() for t in threads)
+    tables = rolling_hash.device_tables(P, "cpu")
+    for i in range(4):
+        solo = rolling_hash.batched_candidate_hits([bufs[i]], [hists[i]],
+                                                   tables, P)[0]
+        assert np.array_equal(hits[i], solo)
+        assert digests[i] == sha256.sha256_chunks(chunks[i], device="cpu")
+    assert feeder.stats["max_mask_batch"] > 1
+    assert feeder.stats["mask_rows"] == 4
+
+
+def test_feeder_failure_reaches_only_its_owner():
+    feeder = DeviceFeeder(linger_s=0.2, device="cpu")
+    good = np.frombuffer(_data(20_000, seed=1), dtype=np.uint8)
+    bad_history = np.zeros(5, dtype=np.uint8)       # not 63 bytes
+    out, errs = {}, {}
+    barrier = threading.Barrier(2)
+
+    def work(name, hist):
+        barrier.wait()
+        try:
+            out[name] = feeder.candidate_hits(good, hist, P)
+        except BaseException as e:
+            errs[name] = e
+
+    threads = [threading.Thread(target=work, args=("good", np.zeros(63, np.uint8))),
+               threading.Thread(target=work, args=("bad", bad_history))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert set(out) == {"good"} and set(errs) == {"bad"}
+    solo = rolling_hash.batched_candidate_hits(
+        [good], [np.zeros(63, np.uint8)], rolling_hash.device_tables(P, "cpu"), P)
+    assert np.array_equal(out["good"], solo[0])
+
+
+def test_cuda_backend_in_session_writer(tmp_path):
+    """chunker='cuda' from the port drops into the JAX package's writer."""
+    from pbs_plus_tpu.pxar import Entry, KIND_DIR, KIND_FILE, LocalStore
+
+    def build(base, factory, hasher):
+        store = LocalStore(str(base), REF_P, chunker_factory=factory,
+                           batch_hasher=hasher)
+        s = store.start_session(backup_type="host", backup_id="x")
+        s.writer.write_entry(Entry(path="", kind=KIND_DIR))
+        s.writer.write_entry_reader(Entry(path="f1", kind=KIND_FILE),
+                                    io.BytesIO(_data(100_000, seed=5)))
+        return s.finish()
+
+    m_cpu = build(tmp_path / "cpu", lambda p: CpuChunker(p), None)
+    m_cuda = build(tmp_path / "cuda", make_chunker_factory("cuda", device="cpu"),
+                   make_batch_hasher("cuda", device="cpu"))
+    assert m_cpu["payload_chunks"] == m_cuda["payload_chunks"]
+    assert m_cpu["payload_size"] == m_cuda["payload_size"]
+    assert make_batch_hasher("cpu") is None
+    with pytest.raises(ValueError):
+        make_chunker_factory("tpu")
+
+
+_GATE = r"""
+import importlib, pkgutil, sys
+
+class _NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith("jax.") or name == "jaxlib" \
+                or name.startswith("jaxlib."):
+            raise ImportError("jax is blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _NoJax())
+import pbs_plus_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(pbs_plus_tpu_torch.__path__,
+                                              "pbs_plus_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+bad = [m for m in sys.modules
+       if m == "pbs_plus_tpu" or m.startswith("pbs_plus_tpu.")
+       or m == "jax" or m.startswith("jax.")]
+assert not bad, bad
+print(len(mods))
+"""
+
+
+def test_port_imports_without_jax_or_reference():
+    r = subprocess.run([sys.executable, "-c", _GATE], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 13
+
+
+def test_cuda_request_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(CudaUnavailableError):
+        DedupPipeline(DedupConfig(params=P))
+    with pytest.raises(CudaUnavailableError):
+        CudaChunker(P)
+    with pytest.raises(CudaUnavailableError):
+        make_chunker_factory("cuda")(P)
+    with pytest.raises(CudaUnavailableError):
+        sha256.sha256_chunks([b"abc"])
