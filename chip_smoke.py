@@ -5,11 +5,18 @@ Run from the root of a checkout: ``python3 chip_smoke.py [--seed N]``.  It
 builds the kernels (``nvcc`` for sm_90a into ``build/torch_kernels/``), then
 runs one phase per line:
 
-1. build      kernel build seconds and the card
-2. k1         candidate-mask kernel == its plain version (small shapes, and
-              the main path's [32, 64 MiB] batch segment by segment)
+1. build      kernel build seconds and the card; ptxas's registers, shared
+              memory and spills of both kernels; the opcodes per round of
+              K2's compression loop from its SASS
+2. k1         candidate-mask kernel == its plain version (small shapes and
+              span edges, and the main path's [32, 64 MiB] batch segment by
+              segment)
 3. k2         SHA-256 kernel == its plain version and hashlib (size list),
               and == hashlib for every chunk of the full step
+   k2_edges   SHA-256 kernel == hashlib (and == plain up to 4096 bytes) at
+              the edges of its padding, ring and warps: every length at
+              every start mod 16, ragged batches, one 16 MiB chunk among
+              1,000 small ones
 4. k3         device probe == the host mirror's lookup, 1 M probes against
               an index preloaded with 1 M fingerprints
 5. main       DedupPipeline.process_streams over 8 x 256 MiB streams at the
@@ -54,14 +61,37 @@ WRITES = 4                       # backup #2: writes of WRITE_BYTES per stream
 WRITE_BYTES = 4 << 10
 SHA_SIZES = [0, 1, 54, 55, 56, 57, 63, 64, 65, 119, 120, 128, 1000, 4096,
              65_537]
+SHA_EDGE_LENS = [0, 1, 55, 56, 63, 64, 65, 119, 120, 121, 128, 4096, 65_537,
+                 (1 << 20) + 3, 16 << 20]
+SHA_EDGE_LONG = 16 << 20  # the one long chunk among 1,000 short ones
+SHA_EDGE_BATCHES = [1, 31, 32, 33, 1000, 5000]
+PLAIN_MAX_LEN = 4096      # the plain SHA-256 runs one step per block: short only
 
 # H100 SXM data sheet: HBM3 at 3.35 TB/s; 132 SMs with 64 int32 lanes each,
 # at the card's max SM clock (read from nvidia-smi)
 HBM_BYTES_PER_S = 3.35e12
 SMS, INT32_LANES = 132, 64
-K1_OPS_PER_BYTE = 8       # 2 lookups, 2 rotates, 2 xors, and, compare
-K2_OPS_PER_BLOCK = 64 * 26 + 48 * 13 + 8    # rounds, schedule, state add
-K2_CHAIN_CYCLES = 3 * 4   # per round: 3 dependent int ops of 4 cycles
+# K1, counted from its SASS: INT32-pipe instructions per position; rolling:
+# 2 PRMT (byte of a word), SHF (rotl 1), 2 LOP3 (xor3, mask ^ magic), ISETP;
+# the closed form's 64 lookups (PRMT, SHF, half a LOP3 each) over a run of
+# 132.  The table addresses are IMADs on the FMA pipe, beside them.
+K1_POSITIONS_PER_THREAD = 132
+K1_OPS_PER_BYTE = 6 + 64 * 2.5 / K1_POSITIONS_PER_THREAD
+K1_LOOKUPS_PER_POSITION = 2 + 64 / K1_POSITIONS_PER_THREAD
+# K2, counted from its SASS: INT32-pipe instructions per 64-byte block, 708
+# in the compression (6 SHF, 4 LOP3, 1 IADD3 a round) and ~523 in the
+# producer's load, realign, schedule and K add; its IMADs go to the FMA pipe
+K2_OPS_PER_BLOCK = 708 + 523
+# K2's floor per round on the longest chunk's lane, the larger of
+# (a) the chain: SHF -> LOP3 -> IADD3 (e' from e), 3 dependent instructions
+#     at 4 cycles each, and
+# (b) dispatch: a round needs at least 10 shift and logic instructions (3 SHF
+#     and a LOP3 for each of S0 and S1, a LOP3 each for ch and maj), which
+#     only the INT32 pipe takes, at 2 cycles per warp instruction (16 lanes
+#     per sub-partition); its 4 adds fit the FMA pipe beside them
+K2_ROUND_CHAIN_CYCLES = 3 * 4
+K2_ROUND_DISPATCH_CYCLES = 10 * 2
+K2_ROUND_FLOOR_CYCLES = max(K2_ROUND_CHAIN_CYCLES, K2_ROUND_DISPATCH_CYCLES)
 
 
 class CheckFailed(Exception):
@@ -145,7 +175,7 @@ def main() -> int:
     from pbs_plus_tpu_torch.models import (CudaChunker, DedupConfig,
                                            DedupPipeline, get_feeder,
                                            make_batch_hasher)
-    from pbs_plus_tpu_torch.ops import _build, cuckoo, rolling_hash, sha256
+    from pbs_plus_tpu_torch.ops import _build, cuckoo, rolling_hash, sass, sha256
     from pbs_plus_tpu_torch.utils.device import host_tensor
 
     dev = torch.device(DEVICE)
@@ -155,8 +185,21 @@ def main() -> int:
 
     # 1. build -------------------------------------------------------------
     build_s = _build.build()
+    sass_text = sass.sass_text(_build.library_path("sha256"))
+    k2_sass = "not available"
+    if sass_text is not None:
+        body = sass.compression_loop(sass_text)
+        check(body is not None, "K2's compression loop is in its SASS")
+        # the schedule's plain shifts (>> 3, >> 10) and the block loads are
+        # the producers' work: none of them in the compression loop
+        check(not body.get("SHF.R.U32.HI") and not any(
+            op.startswith("LDG") for op in body),
+            f"K2's compression loop computes the schedule: {dict(body)}")
+        k2_sass = sass.per_round(body)
     emit({"phase": "build", "seconds": build_s, "card": card,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "ptxas": {n: _build.ptxas_report(n) for n in _build.SOURCES},
+          "sass": {"sha256_compression_loop": k2_sass}})
 
     cfg = CONFIG or DedupConfig()
     P = cfg.params
@@ -173,7 +216,9 @@ def main() -> int:
     for params in (TEST_PARAMS, P):
         tables_c = rolling_hash.device_tables(params, "cpu")
         tables_d = tables_c.to(dev)
-        for S in (1, 40, 62, 63, 64, 8447, 8448, 8449, 1_000_003):
+        span = rolling_hash.SPAN
+        for S in (1, 40, 62, 63, 64, span - 1, span, span + 1,
+                  3 * span + 17, 16 * span, 17 * span + 5, 1_000_003):
             for with_hist in (False, True):
                 data = torch.from_numpy(rng.integers(0, 256, (3, S), dtype=np.uint8))
                 hist = torch.from_numpy(rng.integers(0, 256, (3, WINDOW - 1),
@@ -278,6 +323,46 @@ def main() -> int:
           "K2 kernel != hashlib over the full step")
     emit({"phase": "k2", "max_abs_err": k2_err, "sizes": SHA_SIZES,
           "step_chunks": len(step_bounds), "step_digests_equal_hashlib": True})
+
+    # K2 at the edges of its padding (55/56, 119/120 bytes), of its ring and
+    # producers (blocks 1 to 4 and far beyond), of its warps (31/32/33
+    # chunks) and of its longest-first order (one long chunk among short)
+    edge_stream = torch.from_numpy(rng.integers(
+        0, 256, max(SHA_EDGE_LENS) + SHA_EDGE_LONG + (2 << 20),
+        dtype=np.uint8)).to(dev)
+    edge_host = edge_stream.cpu().numpy()
+    cases = {"lengths x starts mod 16": [(r, r + n) for n in SHA_EDGE_LENS
+                                         for r in range(16)]}
+    for nb in SHA_EDGE_BATCHES:
+        ls = rng.integers(0, 3000, nb)
+        cases[f"batch {nb}"] = [(int(s), int(s + n)) for s, n in
+                                zip(rng.integers(0, 1 << 20, nb), ls)]
+    mix = [(int(s), int(s + n)) for s, n in zip(
+        rng.integers(0, 1 << 20, 1000), rng.integers(0, 5000, 1000))]
+    mix.insert(517, (7, 7 + SHA_EDGE_LONG))
+    cases["long among 1000"] = mix
+    edge_plain_chunks = 0
+    for what, bounds in cases.items():
+        e_starts = torch.tensor([a for a, _ in bounds], device=dev)
+        e_lens = torch.tensor([b - a for a, b in bounds], device=dev)
+        got = sha256.sha256_words(edge_stream, e_starts, e_lens)
+        with ThreadPoolExecutor(8) as pool:
+            want = list(pool.map(lambda se: hashlib.sha256(
+                edge_host[se[0]:se[1]]).digest(), bounds))
+        check([w.astype(">u4").tobytes() for w in
+               got.cpu().numpy().astype(np.uint32)] == want,
+              f"K2 kernel != hashlib at the edges: {what}")
+        short = (e_lens <= PLAIN_MAX_LEN).nonzero().flatten()
+        if len(short):
+            plain = sha256.sha256_words_plain(edge_stream, e_starts[short],
+                                              e_lens[short])
+            check(torch.equal(plain, got[short]),
+                  f"K2 kernel != plain at the edges: {what}")
+            edge_plain_chunks += len(short)
+    emit({"phase": "k2_edges", "cases": {k: len(v) for k, v in cases.items()},
+          "lengths": SHA_EDGE_LENS, "equal_hashlib": True,
+          "equal_plain_chunks": edge_plain_chunks})
+    del edge_stream, edge_host
 
     # 4. K3 against the host mirror ----------------------------------------
     t0 = time.perf_counter()
@@ -486,8 +571,10 @@ def main() -> int:
     k2_bound_bytes = (int(lens_np.sum()) + 32 * len(lens_np)) \
         / HBM_BYTES_PER_S * 1e3
     k2_bound_ops = K2_OPS_PER_BLOCK * int(blocks.sum()) / int32_ops_per_s * 1e3
-    k2_bound_chain = int(blocks.max()) * 64 * K2_CHAIN_CYCLES / clock_hz * 1e3
-    k2_bound = max(k2_bound_bytes, k2_bound_ops, k2_bound_chain)
+    k2_rounds = int(blocks.max()) * 64          # on the longest chunk's lane
+    k2_bound_floor = k2_rounds * K2_ROUND_FLOOR_CYCLES / clock_hz * 1e3
+    k2_bound = max(k2_bound_bytes, k2_bound_ops, k2_bound_floor)
+    k2_cycles_per_round = k2_ms * 1e-3 * clock_hz / k2_rounds
 
     step_digs = np.frombuffer(b"".join(step_digests), np.uint8).reshape(-1, 32)
     table64 = index.device_table()
@@ -498,9 +585,21 @@ def main() -> int:
     k3_1m_ms = cuda_ms(lambda: index.probe(probes), 3)
     emit({"phase": "timings", "card": card, "clock_max_sm_hz": clock_hz,
           "k1": {"ms": k1_ms, "bound_bytes_ms": k1_bound_bytes,
-                 "bound_ops_ms": k1_bound_ops},
-          "k2": {"ms": k2_ms, "bound_bytes_ms": k2_bound_bytes,
-                 "bound_ops_ms": k2_bound_ops, "bound_chain_ms": k2_bound_chain,
+                 "bound_ops_ms": k1_bound_ops,
+                 "positions_per_thread": K1_POSITIONS_PER_THREAD,
+                 "lookups_per_position": K1_LOOKUPS_PER_POSITION,
+                 "int32_ops_per_position": K1_OPS_PER_BYTE,
+                 "span": rolling_hash.SPAN,
+                 "grid_x_spans": rolling_hash.span_partition(seg)},
+          "k2": {"ms": k2_ms, "cycles_per_round": k2_cycles_per_round,
+                 "instructions_per_round": k2_sass["instructions_per_round"]
+                 if isinstance(k2_sass, dict) else "not available",
+                 "bound_bytes_ms": k2_bound_bytes,
+                 "bound_ops_ms": k2_bound_ops, "bound_floor_ms": k2_bound_floor,
+                 "floor_cycles_per_round": {
+                     "chain": K2_ROUND_CHAIN_CYCLES,
+                     "dispatch": K2_ROUND_DISPATCH_CYCLES,
+                     "floor": K2_ROUND_FLOOR_CYCLES},
                  "max_blocks": int(blocks.max()), "blocks": int(blocks.sum()),
                  "ms_size_list": k2_small_ms, "plain_ms_size_list": k2_plain_ms},
           "k3": {"ms": k3_ms, "digests": n_d, "ms_1m_probes_with_upload": k3_1m_ms}})
@@ -529,7 +628,7 @@ def main() -> int:
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "plain_shape": f"size list {SHA_SIZES}, kernel {k2_small_ms} ms there",
          "bound_ms": k2_bound,
-         "bound_by": "bytes" if k2_bound_bytes >= max(k2_bound_ops, k2_bound_chain)
+         "bound_by": "bytes" if k2_bound_bytes >= max(k2_bound_ops, k2_bound_floor)
          else "operations",
          "library_ms": None},
     ]})

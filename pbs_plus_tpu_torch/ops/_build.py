@@ -4,8 +4,10 @@ Each ``ops/csrc/<name>.cu`` is compiled at first use by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface, under
 ``build/torch_kernels/`` at the root of the checkout, and loaded with
 ``ctypes``.  The library's file name carries a hash of its source and the
-flags, so an edit rebuilds.  Several sources build in parallel, one
-``nvcc`` process each.  Nothing here runs at import time.
+flags, so an edit rebuilds.  ``ptxas``'s report (registers, shared
+memory and spills of each kernel) is kept beside the library.  Several
+sources build in parallel, one ``nvcc`` process each.  Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("rolling_hash", "sha256")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _load_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -70,6 +72,7 @@ def build(names=SOURCES) -> float:
     for name, out, tmp, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            out.with_name(out.name + ".log").write_bytes(log)
             os.replace(tmp, out)        # atomic: concurrent builds agree
         else:
             tmp.unlink(missing_ok=True)
@@ -78,6 +81,17 @@ def build(names=SOURCES) -> float:
     if failed:
         raise KernelBuildError("\n".join(failed))
     return time.perf_counter() - t0
+
+
+def ptxas_report(name: str) -> list[str]:
+    """The ``ptxas info`` lines of ``csrc/<name>.cu``'s build: per kernel,
+    registers, barriers, shared memory, stack and spills."""
+    log = library_path(name).with_name(library_path(name).name + ".log")
+    if not log.exists():
+        return []
+    keep = ("Compiling entry", "Used", "spill", "stack frame")
+    return [" ".join(line.split()) for line in log.read_text().splitlines()
+            if any(k in line for k in keep)]
 
 
 def _library(name: str) -> ctypes.CDLL:

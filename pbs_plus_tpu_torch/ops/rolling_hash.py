@@ -28,7 +28,14 @@ _M32 = 0xFFFFFFFF
 KERNEL = Kernel("rolling_hash", "rolling_hash_candidate_mask",
                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                 ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                  ctypes.c_uint32, ctypes.c_uint32, ctypes.c_void_p])
+
+# K1's geometry (csrc/rolling_hash.cu): a span is 256 threads x 132
+# positions; a block walks about SPANS_PER_BLOCK consecutive spans of a row
+SPAN = 256 * 132
+SPANS_PER_BLOCK = 16
+MAX_ROWS = 65535
 
 
 def device_tables(params: ChunkerParams, device="cuda") -> torch.Tensor:
@@ -70,18 +77,35 @@ def candidate_mask_plain(data: torch.Tensor, tables: torch.Tensor, mask: int,
     return hit[:, hlen:]
 
 
+def span_partition(S: int) -> tuple[int, int]:
+    """K1's grid along a row of ``S`` positions: ``(grid_x, spans)``.
+    Block ``x`` of a row hashes spans ``x * spans`` up to the row's last
+    span, ``(x + 1) * spans`` excluded, where span ``k`` holds positions
+    ``[k * SPAN, min((k + 1) * SPAN, S))``.  The row's spans are split as
+    evenly as blocks of about SPANS_PER_BLOCK allow, and no block is
+    empty."""
+    if S <= 0:
+        return 0, 0
+    n_spans = -(-S // SPAN)
+    groups = -(-n_spans // SPANS_PER_BLOCK)
+    spans = -(-n_spans // groups)
+    return -(-n_spans // spans), spans
+
+
 def _launch(data: torch.Tensor, tables: torch.Tensor, mask: int, magic: int,
             history: torch.Tensor | None) -> torch.Tensor:
     B, S = data.shape
-    if B > 65535:
-        raise ValueError(f"at most 65535 rows per launch, got {B}")
+    if B > MAX_ROWS:
+        raise ValueError(f"at most {MAX_ROWS} rows per launch, got {B}")
     if tables.dtype != torch.int32 or tables.numel() != 256:
         raise ValueError("tables must be int32[256]")
     tables = tables.contiguous()
     out = torch.empty((B, S), dtype=torch.uint8, device=data.device)
+    grid_x, spans = span_partition(S)
     KERNEL(data.device.index, data.data_ptr(),
            history.data_ptr() if history is not None else None,
-           tables.data_ptr(), out.data_ptr(), B, S, mask & _M32, magic & _M32,
+           tables.data_ptr(), out.data_ptr(), B, S, SPAN, spans, grid_x,
+           mask & _M32, magic & _M32,
            torch.cuda.current_stream(data.device).cuda_stream)
     return out.view(torch.bool)
 

@@ -114,14 +114,31 @@ def sha256_words_plain(stream: torch.Tensor, starts: torch.Tensor,
     return torch.stack(state, dim=1)
 
 
+def launch_plan(lens: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's launch plan for int64[N] chunk lengths: ``order`` (indices
+    longest first, ties in input order), its inverse ``inv``
+    (``x[order][inv] == x``) and the blocks of each chunk,
+    ``(L + 8) // 64 + 1``: its data blocks, the 0x80 byte and the 64-bit
+    bit length.  The kernel hashes ``order``'s chunks 32 to a warp, so the
+    longest chunk starts first and a warp's lanes have similar block
+    counts; ``inv`` puts the digests back in input order."""
+    order = torch.sort(lens, descending=True, stable=True).indices
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    return order, inv, (lens + 8) // 64 + 1
+
+
 def _launch(stream: torch.Tensor, starts: torch.Tensor,
             lens: torch.Tensor) -> torch.Tensor:
     n = starts.numel()
+    order, inv, _ = launch_plan(lens)
+    s_starts, s_lens = starts[order], lens[order]
     out = torch.empty((n, 8), dtype=torch.int32, device=stream.device)
-    KERNEL(stream.device.index, stream.data_ptr(), starts.data_ptr(),
-           lens.data_ptr(), n, out.data_ptr(),
+    KERNEL(stream.device.index, stream.data_ptr(), s_starts.data_ptr(),
+           s_lens.data_ptr(), n, out.data_ptr(),
            torch.cuda.current_stream(stream.device).cuda_stream)
-    return out.to(torch.int64) & _M32
+    return out[inv].to(torch.int64) & _M32
 
 
 def sha256_words(stream: torch.Tensor, starts: torch.Tensor,

@@ -34,8 +34,11 @@ def _bytes(n, seed):
                          ids=["4KiB", "4MiB"])
 @pytest.mark.parametrize("with_history", [False, True])
 def test_candidate_mask_kernel_matches_plain(cuda, params, with_history):
-    # lengths off every span multiple, below the window, and across spans
-    for S in (1, 40, 63, 64, 8447, 8448, 8449, 300_001):
+    # lengths below the window, off and on every span edge, across spans,
+    # and 16-byte aligned rows (staged by cp.async) beside ragged ones
+    span = rolling_hash.SPAN
+    for S in (1, 40, 63, 64, 8447, 8448, 8449, 300_001, span - 1, span,
+              span + 1, 3 * span + 17, 16 * span, 17 * span + 5):
         data = torch.from_numpy(np.stack([_bytes(S, S), _bytes(S, S + 1)]))
         hist = torch.from_numpy(np.stack([_bytes(63, 7), _bytes(63, 8)])) \
             if with_history else None
@@ -83,3 +86,41 @@ def test_cuckoo_probe_on_card_matches_host(cuda):
     got = idx.probe(probes).cpu().numpy()
     assert np.array_equal(got, cuckoo.lookup_host(idx._table, probes))
     assert got[:1000].all()
+
+
+SHA_EDGE_LENS = [0, 1, 55, 56, 63, 64, 65, 119, 120, 121, 128, 4096, 65_537,
+                 (1 << 20) + 3, 16 << 20]
+
+
+def _sha_check(stream, bounds, cuda):
+    got = sha256.sha256_stream_chunks(stream, bounds, device=cuda)
+    assert got == [hashlib.sha256(stream[s:e].tobytes()).digest()
+                   for s, e in bounds]
+    short = [(s, e) for s, e in bounds if e - s <= 4096]
+    if short:
+        assert sha256.sha256_stream_chunks(stream, short, device="cpu") == \
+            sha256.sha256_stream_chunks(stream, short, device=cuda)
+
+
+def test_sha256_kernel_edge_lengths_every_start_mod_16(cuda):
+    stream = _bytes(max(SHA_EDGE_LENS) + 16, 12)
+    _sha_check(stream, [(r, r + n) for n in SHA_EDGE_LENS for r in range(16)],
+               cuda)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000, 5000])
+def test_sha256_kernel_ragged_batches(cuda, n):
+    rng = np.random.default_rng(n)
+    stream = _bytes((1 << 20) + 3000, 13)
+    bounds = [(int(s), int(s + k)) for s, k in
+              zip(rng.integers(0, 1 << 20, n), rng.integers(0, 3000, n))]
+    _sha_check(stream, bounds, cuda)
+
+
+def test_sha256_kernel_long_chunk_among_short(cuda):
+    rng = np.random.default_rng(14)
+    stream = _bytes((16 << 20) + (1 << 20), 15)
+    bounds = [(int(s), int(s + k)) for s, k in
+              zip(rng.integers(0, 1 << 20, 1000), rng.integers(0, 5000, 1000))]
+    bounds.insert(517, (7, 7 + (16 << 20)))
+    _sha_check(stream, bounds, cuda)

@@ -90,3 +90,59 @@ def test_cuda_request_raises_without_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(CudaUnavailableError):
         port.candidate_ends_host(b"x" * 100, P)
+
+
+SPAN = port.SPAN
+RAGGED = [1, 62, 63, 64, SPAN - 1, SPAN, SPAN + 1, 3 * SPAN + 17]
+
+
+def _blocks(S):
+    """Position ranges [lo, hi) of the blocks along one row, as the kernel
+    derives them from span_partition."""
+    grid_x, spans = port.span_partition(S)
+    n_spans = -(-S // SPAN)
+    out = []
+    for bx in range(grid_x):
+        k0, k1 = bx * spans, min(bx * spans + spans, n_spans)
+        out.append((k0 * SPAN, min(k1 * SPAN, S)))
+    return out
+
+
+@pytest.mark.parametrize("S", RAGGED + [16 * SPAN, 17 * SPAN + 5, 64 << 20])
+@pytest.mark.parametrize("B", [1, 3, port.MAX_ROWS])
+def test_span_partition_covers_every_position_once(S, B):
+    blocks = _blocks(S)
+    assert all(lo < hi for lo, hi in blocks)                # no empty block
+    assert blocks[0][0] == 0 and blocks[-1][1] == S
+    assert all(a[1] == b[0] for a, b in zip(blocks, blocks[1:]))
+    if S <= 4 * SPAN:
+        seen = np.zeros(S, np.int64)
+        for lo, hi in blocks:
+            seen[lo:hi] += 1
+        assert (seen == 1).all()
+    # the grid is (grid_x, B): every row gets the same blocks
+    grid_x, spans = port.span_partition(S)
+    assert grid_x * B <= (1 << 31) - 1 and B <= port.MAX_ROWS
+    assert sum(hi - lo for lo, hi in blocks) * B == S * B
+    assert spans <= 2 * port.SPANS_PER_BLOCK
+
+
+def test_launch_rejects_too_many_rows():
+    data = torch.zeros((port.MAX_ROWS + 1, 1), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="rows per launch"):
+        port._launch(data, port.device_tables(P, "cpu"), P.mask, P.magic,
+                     None)
+
+
+@pytest.mark.parametrize("S", [SPAN - 1, SPAN + 1, 3 * SPAN + 17])
+def test_candidate_mask_matches_pallas_at_span_edges(S):
+    # the smallest average the reference takes, so that hits are many
+    params = RefParams(avg_size=1024)
+    p = params_from_reference(params.avg_size, params.min_size,
+                              params.max_size, params.seed)
+    data = np.stack([_bytes(S, S), _bytes(S, S + 1)])
+    want = np.asarray(candidate_mask_pallas(jnp.asarray(data), params,
+                                            interpret=True))
+    got = port.candidate_mask_params(torch.from_numpy(data), p)
+    assert np.array_equal(got.numpy(), want)
+    assert want.any()

@@ -59,3 +59,47 @@ def test_sha256_rejects_oversized(bounds):
 def test_sha256_rejects_bounds_outside_stream():
     with pytest.raises(ValueError, match="outside the stream"):
         port.sha256_stream_chunks(b"abc", [(1, 5)], device="cpu")
+
+
+def _plan_case(seed, n=200, max_len=300):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, max_len + 1, n)
+    starts = rng.integers(0, 64, n) + np.concatenate(
+        [[0], np.cumsum(lens)[:-1]])            # unaligned, may overlap
+    data = rng.integers(0, 256, int((starts + lens).max()) + 1,
+                        dtype=np.uint8).tobytes()
+    return data, starts, lens
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_launch_plan_order_inverse_and_blocks(seed):
+    _, _, lens = _plan_case(seed)
+    lens[::7] = lens[3]                          # ties keep input order
+    t = torch.from_numpy(lens)
+    order, inv, blocks = port.launch_plan(t)
+    o = order.numpy()
+    assert sorted(o) == list(range(len(lens)))
+    assert np.all(np.diff(lens[o]) <= 0)         # longest first
+    ties = lens[o][1:] == lens[o][:-1]
+    assert np.all(o[1:][ties] > o[:-1][ties])    # stable
+    assert np.array_equal(t[order][inv].numpy(), lens)
+    # the block count _sha256_scan_impl computes inline
+    # (pbs_plus_tpu/ops/sha256.py, nblocks = (L + 8) // 64 + 1): the data,
+    # the 0x80 byte and the 8-byte bit length fit, with under 64 bytes spare
+    assert np.array_equal(blocks.numpy(), (lens + 8) // 64 + 1)
+    spare = 64 * blocks.numpy() - lens - 9
+    assert spare.min() >= 0 and spare.max() < 64
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_plain_through_launch_plan_matches_hashlib_and_reference(seed):
+    data, starts, lens = _plan_case(seed, n=60)
+    stream = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    s, n = torch.from_numpy(starts), torch.from_numpy(lens)
+    order, inv, _ = port.launch_plan(n)
+    words = port.sha256_words_plain(stream, s[order], n[order])[inv]
+    got = [w.astype(">u4").tobytes()
+           for w in words.numpy().astype(np.uint32)]
+    bounds = [(int(a), int(a + b)) for a, b in zip(starts, lens)]
+    assert got == [hashlib.sha256(data[a:b]).digest() for a, b in bounds]
+    assert got == ref.sha256_stream_chunks(data, bounds)
