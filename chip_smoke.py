@@ -26,12 +26,29 @@ runs one phase per line:
               8 writer threads feeding 4 MiB pieces
    layers     one step's time by layer, and the device's busy share under
               torch.profiler
-7. timings    each kernel's time, bound, plain and library times
+7. sidecar    the route an unmodified backup server takes: DedupService on
+              the card, 8 client threads streaming the 8 streams through
+              Chunk in 4 MiB pages, InsertIndex of backup #1, backup #2
+              and ProbeIndex, Similarity per stream; over loopback gRPC
+              (serve_sidecar + SidecarClient) where grpc and msgpack
+              import, else the same calls in process
+8. similarity SimilarityModel over 10,000 digests: minhash (k=128),
+              simhash (k=64), near_duplicates over a 10k x 10k Hamming
+              matrix; content sketches of the step's chunks
+9. verify     VerifyPipeline: the step's chunks with one byte flipped, one
+              stream's bounds, and a snapshot reader with a bad and an
+              unreadable chunk at 0 and 4 workers
+10. fingerprint fold fingerprints of the step's chunks
+11. ingest    the 8 streams' next 32 MiB windows packed into one ragged
+              buffer, scanned by one K1 launch, the cut chunks digested
+12. timings   each kernel's and torch-op program's time, bound, plain and
+              library times
 
-then a ``{"kernels": [...]}`` line, the card's name and power limit as
-nvidia-smi gives them, and last ``{"ok": true, "device": {...}}``.  Any
-failed check exits non-zero; without a CUDA device it exits non-zero and
-prints no result.  Imports nothing of JAX or of the JAX package.
+then a ``{"torch_ops": [...]}`` and a ``{"kernels": [...]}`` line, the
+card's name and power limit as nvidia-smi gives them, and last
+``{"ok": true, "device": {...}}``.  Any failed check exits non-zero;
+without a CUDA device it exits non-zero and prints no result.  Imports
+nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -66,6 +83,13 @@ SHA_EDGE_LENS = [0, 1, 55, 56, 63, 64, 65, 119, 120, 121, 128, 4096, 65_537,
 SHA_EDGE_LONG = 16 << 20  # the one long chunk among 1,000 short ones
 SHA_EDGE_BATCHES = [1, 31, 32, 33, 1000, 5000]
 PLAIN_MAX_LEN = 4096      # the plain SHA-256 runs one step per block: short only
+SIM_DIGESTS = 10_000      # BASELINE.json config #5: 10k historical digests
+SIM_CORNER = 1000         # Hamming matrix held against numpy on this corner
+SIM_MAX_DISTANCE = 6      # near_duplicates' default
+CS_SAMPLE = 32            # content sketches held against numpy on these
+FP_SAMPLE = 16            # fold fingerprints held against numpy on these
+VERIFY_SNAPSHOT_CHUNKS = 48   # chunks behind the snapshot reader
+INGEST_WINDOW = 32 << 20  # each stream's window in the fused-ingest batch
 
 # H100 SXM data sheet: HBM3 at 3.35 TB/s; 132 SMs with 64 int32 lanes each,
 # at the card's max SM clock (read from nvidia-smi)
@@ -92,6 +116,19 @@ K2_OPS_PER_BLOCK = 708 + 523
 K2_ROUND_CHAIN_CYCLES = 3 * 4
 K2_ROUND_DISPATCH_CYCLES = 10 * 2
 K2_ROUND_FLOOR_CYCLES = max(K2_ROUND_CHAIN_CYCLES, K2_ROUND_DISPATCH_CYCLES)
+# the torch-op programs' least operations, int32 unless said otherwise:
+# simhash is a float64 [N, 256] @ [256, k] product, bound by the data
+# sheet's FP64 tensor-core rate; minhash a multiply-add and a min per
+# (digest, hash); Hamming an XOR, a popcount and an add per word pair;
+# content sketch per byte a window (1 funnel shift), the first mix (2
+# multiplies, 2 shifts, 2 XORs) and the sample test (AND, compare); fold
+# fingerprint per 4-byte word a byte swap, a multiply, half an XOR, a
+# rotate and the fold's XOR
+FP64_FLOPS = 67e12
+MINHASH_OPS = 2
+HAMMING_OPS = 3
+CS_OPS_PER_BYTE = 1 + 6 + 2
+FOLD_OPS_PER_BYTE = 4.5 / 4
 
 
 class CheckFailed(Exception):
@@ -129,6 +166,26 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn):
+    """``fn()``'s result and the device time of each kernel it ran, in ms,
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r = fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms[e.key] = ms.get(e.key, 0.0) + getattr(
+                e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+    return r, ms
+
+
+def top(ms: dict, n: int) -> dict:
+    """The ``n`` largest entries of ``ms``, names cut to 100 characters."""
+    return {k[:100]: v for k, v in sorted(ms.items(), key=lambda kv: -kv[1])[:n]}
+
+
 def make_streams(seed: int) -> dict[str, np.ndarray]:
     """8 streams of 256 MiB: unique bytes around a 64 MiB region shared
     with the pair's other stream."""
@@ -161,6 +218,57 @@ def hashlib_digests(streams, bounds_by) -> dict[str, list[bytes]]:
             bounds_by[n])) for n in sorted(streams)}
 
 
+def sidecar_wire() -> str:
+    """"grpc" where grpc and msgpack import, else "in-process"."""
+    try:
+        import grpc  # noqa: F401
+        import msgpack  # noqa: F401
+    except ImportError:
+        return "in-process"
+    return "grpc"
+
+
+class InProcessClient:
+    """The five sidecar methods as direct handler calls with dicts: the
+    sidecar phase's transport where grpc or msgpack is missing."""
+
+    def __init__(self, svc):
+        self.svc = svc
+
+    def chunk(self, stream_id, data, *, eof=False):
+        return self.svc.chunk({"stream_id": stream_id, "data": data, "eof": eof})
+
+    def probe_index(self, digests):
+        return self.svc.probe_index({"digests": digests})["present"]
+
+    def insert_index(self, digests):
+        return self.svc.insert_index({"digests": digests})["inserted"]
+
+    def stats(self):
+        return self.svc.get_stats({})
+
+    def snapshot_signature(self, digests):
+        return self.svc.snapshot_signature({"digests": digests})["signature"]
+
+    def close(self):
+        pass
+
+
+_POPCOUNT8 = np.array([bin(i).count("1") for i in range(256)], dtype=np.uint8)
+
+
+def hamming_pairs_host(a: np.ndarray, b: np.ndarray, max_distance: int):
+    """(i, j, dist) of every pair within ``max_distance``, row-major: a
+    numpy popcount table over row blocks, independent of the port."""
+    out = []
+    for r in range(0, len(a), 500):
+        x = (a[r:r + 500, None, :] ^ b[None, :, :]).view(np.uint8)
+        d = _POPCOUNT8[x].sum(axis=-1, dtype=np.int32)
+        ii, jj = np.nonzero(d <= max_distance)
+        out += [(int(i) + r, int(j), int(d[i, j])) for i, j in zip(ii, jj)]
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -169,13 +277,18 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; no result",
               file=sys.stderr)
         return 2
+    wire = sidecar_wire()       # the sidecar phase's transport, decided once
 
     from pbs_plus_tpu_torch.chunker.spec import (DEFAULT_PARAMS, TEST_PARAMS,
                                                  WINDOW, select_cuts)
     from pbs_plus_tpu_torch.models import (CudaChunker, DedupConfig,
                                            DedupPipeline, get_feeder,
                                            make_batch_hasher)
-    from pbs_plus_tpu_torch.ops import _build, cuckoo, rolling_hash, sass, sha256
+    from pbs_plus_tpu_torch.models import SimilarityModel, VerifyPipeline
+    from pbs_plus_tpu_torch.ops import (_build, cuckoo, fingerprint, ingest,
+                                        rolling_hash, sass, sha256, similarity)
+    from pbs_plus_tpu_torch.ops._u32 import length_groups
+    from pbs_plus_tpu_torch.sidecar import DedupService, SidecarClient, serve_sidecar
     from pbs_plus_tpu_torch.utils.device import host_tensor
 
     dev = torch.device(DEVICE)
@@ -454,6 +567,7 @@ def main() -> int:
     check(new2 > 0, "backup #2 stores the written chunks")
     emit({"phase": "main_backup2", "chunks": sum(len(res2[n].chunks) for n in names),
           "unchanged_present": unchanged, "new_chunks": new2})
+    b2_is_new = {n: [c.is_new for c in res2[n].chunks] for n in names}
     del streams2, res2
 
     # 6. the streaming path --------------------------------------------------
@@ -540,23 +654,310 @@ def main() -> int:
     del lstream, segs, hists
     all_digests = [d for n in names for d in ref_digests[n]]
     _, probe_s = timed(lambda: index.probe_confirmed(all_digests))
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, prof_s = timed(lambda: pipe.fingerprint_streams(streams))
-    dev_us = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us[e.key] = dev_us.get(e.key, 0.0) + getattr(
-                e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-    busy_ms = sum(dev_us.values()) / 1e3
+    (_, prof_s), dev_ms = device_ms(lambda: timed(lambda: pipe.fingerprint_streams(streams)))
+    busy_ms = sum(dev_ms.values())
     emit({"phase": "layers", "h2d_s": h2d_s, "mask_s": mask_s, "cuts_s": cuts_s, "sha_s": sha_s,
           "probe_s": probe_s, "profiled_chunk_fp_s": prof_s,
-          "device_busy_ms": busy_ms if dev_us else None,
-          "device_busy_share": busy_ms / (prof_s * 1e3) if dev_us else None,
-          "top_device_ms": {k: v / 1e3 for k, v in sorted(
-              dev_us.items(), key=lambda kv: -kv[1])[:8]}})
+          "device_busy_ms": busy_ms if dev_ms else None,
+          "device_busy_share": busy_ms / (prof_s * 1e3) if dev_ms else None,
+          "top_device_ms": top(dev_ms, 8)})
 
-    # 7. timings at the main path's shapes ----------------------------------
+    # 7. the sidecar route -----------------------------------------------------
+    # the route an unmodified server takes (job rows with chunker =
+    # "sidecar:<host:port>"): the service on the card, the index preloaded
+    # like the main path's, 8 client threads streaming 4 MiB pages
+    if wire == "grpc":
+        server, port, svc = serve_sidecar("127.0.0.1:0", params=P, device=dev,
+                                          max_workers=2 * N_STREAMS)
+        client = SidecarClient(f"127.0.0.1:{port}")
+    else:
+        server, svc = None, DedupService(params=P, device=dev)
+        client = InProcessClient(svc)
+    check(svc.index.n_buckets == DedupConfig().index_buckets,
+          "the sidecar's index has the production bucket count")
+    t0 = time.perf_counter()
+    check(client.insert_index(preload) == PRELOAD, "sidecar preload")
+    sc_preload_s = time.perf_counter() - t0
+
+    def sidecar_backup(strs, tag):
+        got, errs = {}, []
+        barrier = threading.Barrier(N_STREAMS)
+
+        def agent(name):
+            try:
+                a = strs[name]
+                cuts, digs = [], []
+                barrier.wait()
+                for off in range(0, len(a), PIECE_BYTES):
+                    r = client.chunk(f"{tag}-{name}",
+                                     a[off:off + PIECE_BYTES].tobytes(),
+                                     eof=off + PIECE_BYTES >= len(a))
+                    cuts += r["cuts"]
+                    digs += r["digests"]
+                got[name] = (cuts, digs)
+            except BaseException as e:     # surfaced by the check below
+                errs.append(repr(e))
+
+        threads = [threading.Thread(target=agent, args=(n,)) for n in names]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(900)
+        secs = time.perf_counter() - t
+        check(not errs and not any(th.is_alive() for th in threads),
+              f"sidecar clients failed: {errs}")
+        return got, secs
+
+    streams2 = rewrite(streams, args.seed)
+    rolling_hash.KERNEL.launches = 0
+    sha256.KERNEL.launches = 0
+    cuckoo.stats["device_probes"] = 0
+    similarity.stats["minhash"] = 0
+    sc1, sc1_s = sidecar_backup(streams, "b1")
+    b1_digests = [d for n in names for d in sc1[n][1]]
+    check(client.insert_index(b1_digests) == len(set(b1_digests) - set(preload)),
+          "InsertIndex of backup #1 counts its novel digests")
+    sc2, sc2_s = sidecar_backup(streams2, "b2")
+    b2_digests = [d for n in names for d in sc2[n][1]]
+    present = client.probe_index(b2_digests)
+    sigs = {n: client.snapshot_signature(sc1[n][1]) for n in names}
+    sc_launches = {"candidate_mask": rolling_hash.KERNEL.launches,
+                   "sha256_chunks": sha256.KERNEL.launches,
+                   "cuckoo_probe": cuckoo.stats["device_probes"],
+                   "minhash": similarity.stats["minhash"]}
+    check(all(v > 0 for v in sc_launches.values()),
+          f"a kernel of the sidecar path did not launch: {sc_launches}")
+    sc_stats = client.stats()
+    client.close()
+    if server is not None:
+        server.stop(grace=None)
+    for n in names:
+        check(sc1[n] == ([e for _, e in ref_bounds[n]], ref_digests[n]),
+              f"sidecar backup #1 cuts or digests of {n} != main path (hashlib)")
+        check(sc2[n] == ([e for _, e in ref2_bounds[n]], ref2_digests[n]),
+              f"sidecar backup #2 cuts or digests of {n} != main_backup2 (hashlib)")
+        check(sigs[n] == [int(x) for x in similarity.minhash_signature_host(
+            np.frombuffer(b"".join(sc1[n][1]), np.uint8).reshape(-1, 32), k=128)],
+            f"sidecar Similarity of {n} != minhash_signature_host")
+    # present/novel against main_backup2's is_new: equal, except that a
+    # novel chunk repeated within backup #2 is not new the second time
+    novel_seen: set[bytes] = set()
+    for d, p, new in zip(b2_digests, present, [x for n in names for x in b2_is_new[n]]):
+        if d in novel_seen:
+            check(not p and not new, "sidecar probe of a repeated novel chunk")
+        else:
+            check(p == (not new), "sidecar ProbeIndex != main_backup2's is_new")
+            if not p:
+                novel_seen.add(d)
+    check(sc_stats["use_tpu"] is (dev.type == "cuda")
+          and sc_stats["bytes"] == 2 * N_STREAMS * STREAM_BYTES
+          and sc_stats["index_size"] == len(set(preload) | set(b1_digests)),
+          f"sidecar stats: {sc_stats}")
+    emit({"phase": "sidecar", "wire": wire, "streams": N_STREAMS,
+          "stream_bytes": STREAM_BYTES, "page": PIECE_BYTES,
+          "preload_s": sc_preload_s, "backup1_s": sc1_s, "mib_s": gib / sc1_s,
+          "backup2_s": sc2_s, "backup2_mib_s": gib / sc2_s,
+          "probe": {"present": int(sum(present)), "novel": len(present) - int(sum(present))},
+          "launches": sc_launches, "feeder": dict(get_feeder(dev).stats),
+          "stats": {k: v for k, v in sc_stats.items() if k != "chunker"}})
+    del streams2, sc1, sc2
+
+    # 8. similarity (BASELINE.json config #5) --------------------------------
+    srng = np.random.default_rng(args.seed + 11)
+    sim_a = np.frombuffer(srng.bytes(32 * SIM_DIGESTS), np.uint8).reshape(-1, 32)
+    # a second snapshot sharing half of the first one's chunks
+    sim_b = np.concatenate([sim_a[:SIM_DIGESTS // 2], np.frombuffer(
+        srng.bytes(32 * (SIM_DIGESTS - SIM_DIGESTS // 2)), np.uint8).reshape(-1, 32)])
+    a_list = [bytes(r) for r in sim_a]
+    b_list = [bytes(r) for r in sim_b]
+    step_chunks = [streams[n][s:e].tobytes() for n in names for s, e in ref_bounds[n]]
+    model = SimilarityModel(device=dev)
+    check((model.simhash_bits, model.minhash_k) == (64, 128), "model defaults")
+    for key in similarity.stats:
+        similarity.stats[key] = 0
+    t0 = time.perf_counter()
+    sig_a = model.snapshot_signature(a_list)
+    sig_b = model.snapshot_signature(b_list)
+    sk_a = model.chunk_sketches(a_list)
+    sk_b = model.chunk_sketches(b_list)
+    pairs = model.near_duplicates(sk_a, sk_b, max_distance=SIM_MAX_DISTANCE)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs = similarity.content_sketch_device(step_chunks, device=dev)
+    cs_s = time.perf_counter() - t0
+    sim_launches = dict(similarity.stats)
+    check(all(v > 0 for v in sim_launches.values()),
+          f"a program of the similarity path did not run: {sim_launches}")
+    t0 = time.perf_counter()
+    mh_host = similarity.minhash_signature_host(sim_a, k=128)
+    mh_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(sig_a, mh_host) and np.array_equal(
+        sig_b, similarity.minhash_signature_host(sim_b, k=128)),
+        "minhash signature != minhash_signature_host")
+    t0 = time.perf_counter()
+    sk_host = similarity.simhash_sketch_host(sim_a, k=64)
+    sh_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(sk_a, sk_host) and np.array_equal(
+        sk_b, similarity.simhash_sketch_host(sim_b, k=64)),
+        "simhash sketches != simhash_sketch_host")
+    corner = similarity.pairwise_hamming(sk_a[:SIM_CORNER], sk_b[:SIM_CORNER],
+                                         device=dev).cpu().numpy()
+    t0 = time.perf_counter()
+    corner_host = similarity.pairwise_hamming_host(sk_a[:SIM_CORNER], sk_b[:SIM_CORNER])
+    ham_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(corner, corner_host), "Hamming corner != pairwise_hamming_host")
+    check(pairs == hamming_pairs_host(sk_a, sk_b, SIM_MAX_DISTANCE),
+          "near_duplicates != the host's pairs")
+    check({(i, i) for i in range(SIM_DIGESTS // 2)} <= {(i, j) for i, j, _ in pairs},
+          "near_duplicates finds the shared chunks")
+    cs_idx = np.linspace(0, len(step_chunks) - 1, CS_SAMPLE).astype(int)
+    cs_sample = [step_chunks[i] for i in cs_idx]
+    t0 = time.perf_counter()
+    cs_host = similarity.content_sketch_host(cs_sample)
+    cs_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(cs[cs_idx], cs_host), "content sketches != content_sketch_host")
+    emit({"phase": "similarity", "digests": SIM_DIGESTS, "pairs": len(pairs),
+          "minhash_similarity": similarity.minhash_similarity(sig_a, sig_b),
+          "model_s": sim_s, "content_sketch_chunks": len(step_chunks),
+          "content_sketch_s": cs_s, "content_sketch_mib_s": gib / cs_s,
+          "launches": sim_launches, "host_checked": {
+              "minhash": 2, "simhash": 2 * SIM_DIGESTS,
+              "hamming_corner": [SIM_CORNER, SIM_CORNER],
+              "near_duplicates": "all pairs", "content_sketch": CS_SAMPLE}})
+
+    # 9. verify --------------------------------------------------------------
+    vp = VerifyPipeline(device=dev)
+    sha256.KERNEL.launches = 0
+    flip = len(step_chunks) // 2
+    bad = list(step_chunks)
+    bad[flip] = bad[flip][:100] + bytes([bad[flip][100] ^ 1]) + bad[flip][101:]
+    t0 = time.perf_counter()
+    vres = vp.verify_chunks(bad, step_digests)
+    verify_s = time.perf_counter() - t0
+    check(vres.corrupt == [flip] and vres.checked == len(step_chunks),
+          f"verify_chunks: corrupt {vres.corrupt}, want [{flip}]")
+    del bad
+    n0 = names[0]
+    t0 = time.perf_counter()
+    vs = vp.verify_stream(streams[n0], ref_bounds[n0], ref_digests[n0])
+    verify_stream_s = time.perf_counter() - t0
+    check(vs.ok and vs.checked == len(ref_bounds[n0]), "verify_stream of one stream")
+    snap = step_chunks[:VERIFY_SNAPSHOT_CHUNKS]
+    snap_digests = step_digests[:VERIFY_SNAPSHOT_CHUNKS]
+    wrong, unreadable = 5, 17
+    held = dict(zip(snap_digests, snap))
+    held[snap_digests[wrong]] = snap[wrong][:-1] + bytes([snap[wrong][-1] ^ 1])
+
+    class Index:
+        def __init__(self, digests):
+            self.ends = list(range(len(digests)))
+            self._d = digests
+
+        def digest(self, i):
+            return self._d[i]
+
+    class Reader:
+        """A snapshot without per-entry digests: chunk-level verify."""
+        meta_index = Index([])
+        payload_index = Index(snap_digests)
+
+        def entries(self):
+            return []
+
+        def fetch_chunk(self, d):
+            if d == snap_digests[unreadable]:
+                raise OSError("unreadable chunk")
+            return held[d]
+
+    verdicts = [vp.verify_snapshot(Reader(), workers=w) for w in (0, 4)]
+    # on the card every fetched chunk is re-hashed by K2, which catches the
+    # wrong bytes; on the CPU (a rehearsal) the fetch alone is the verdict
+    want_corrupt = sorted([wrong, unreadable]) if dev.type == "cuda" \
+        else [unreadable]
+    for v in verdicts:
+        check(sorted(v.corrupt) == want_corrupt and v.checked == len(snap),
+              f"verify_snapshot: corrupt {v.corrupt}, want {want_corrupt}")
+    check(verdicts[0].corrupt == verdicts[1].corrupt
+          and verdicts[0].corrupt_paths == verdicts[1].corrupt_paths,
+          "verify_snapshot verdicts differ between 0 and 4 workers")
+    verify_launches = {"sha256_chunks": sha256.KERNEL.launches}
+    check(verify_launches["sha256_chunks"] > 0, "K2 did not launch on the verify path")
+    emit({"phase": "verify", "chunks": len(step_chunks), "corrupt": vres.corrupt,
+          "verify_chunks_s": verify_s, "verify_stream_s": verify_stream_s,
+          "snapshot_chunks": len(snap), "snapshot_corrupt": verdicts[0].corrupt,
+          "launches": verify_launches})
+
+    # 10. fold fingerprint ---------------------------------------------------
+    fingerprint.stats["fold_fingerprint"] = 0
+    st_np = np.array([s for s, _ in step_bounds], dtype=np.int64)
+    ln_np = np.array([e - s for s, e in step_bounds], dtype=np.int64)
+    fp_t_max = int(ln_np.max() + 63) // 64
+    t0 = time.perf_counter()
+    fold = fingerprint.fold_fingerprint(dstream, st_np, ln_np, fp_t_max, device=dev)
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t0
+    fold_launches = dict(fingerprint.stats)
+    check(fold_launches["fold_fingerprint"] > 0, "fold_fingerprint did not run")
+    fp_idx = np.linspace(0, len(step_chunks) - 1, FP_SAMPLE).astype(int)
+    fold_np = fold.cpu().numpy().astype(np.uint32)
+    t0 = time.perf_counter()
+    fp_host = [fingerprint.fold_fingerprint_host(step_chunks[i]) for i in fp_idx]
+    fold_plain_ms = (time.perf_counter() - t0) * 1e3
+    check([fold_np[i].astype(">u4").tobytes() for i in fp_idx] == fp_host,
+          "fold_fingerprint != fold_fingerprint_host")
+    emit({"phase": "fingerprint", "chunks": len(step_bounds), "t_max": fp_t_max,
+          "seconds": fold_s, "launches": fold_launches, "host_checked": FP_SAMPLE})
+
+    # 11. fused ingest ---------------------------------------------------------
+    # each stream's next window after its first segment, with its real
+    # 63-byte tail, as 4 blocks; one K1 launch over the packed buffer
+    w_off = min(seg, STREAM_BYTES - INGEST_WINDOW)
+    rows, tails = [], []
+    for n in names:
+        win = memoryview(streams[n][w_off:w_off + INGEST_WINDOW])
+        q = INGEST_WINDOW // 4
+        rows.append([win[i * q:(i + 1) * q if i < 3 else INGEST_WINDOW]
+                     for i in range(4)])
+        tails.append(streams[n][w_off - WINDOW + 1:w_off].tobytes())
+    batch = ingest.pack_rows(rows, tails, [WINDOW - 1] * N_STREAMS,
+                             [w_off] * N_STREAMS)
+    rolling_hash.KERNEL.launches = 0
+    sha256.KERNEL.launches = 0
+    stats0 = dict(ingest.stats)
+    t0 = time.perf_counter()
+    ends = ingest.scan_rows(batch, P, device=dev)
+    scan_s = time.perf_counter() - t0
+    ing_chunks, ing_want = [], []
+    for n, e in zip(names, ends):
+        win = torch.from_numpy(streams[n][w_off:w_off + INGEST_WINDOW].copy()).to(dev)
+        tail = torch.from_numpy(streams[n][w_off - WINDOW + 1:w_off].copy()).to(dev)
+        want = rolling_hash.candidate_mask_plain(win[None], tables, P.mask, P.magic,
+                                                 tail[None])
+        want = torch.nonzero(want[0]).flatten().cpu().numpy() + 1 + w_off
+        check(np.array_equal(e, want), f"scan_rows of {n} != plain K1 in stream context")
+        cuts = select_cuts(e, w_off + INGEST_WINDOW, P, start=w_off)
+        for s, c in zip([w_off] + cuts[:-1], cuts):
+            ing_chunks.append(streams[n][s:c].tobytes())
+    t0 = time.perf_counter()
+    ing_digests = ingest.digest_chunks(ing_chunks, device=dev)
+    digest_s = time.perf_counter() - t0
+    ing_launches = {"candidate_mask": rolling_hash.KERNEL.launches,
+                    "sha256_chunks": sha256.KERNEL.launches}
+    check(ing_launches["candidate_mask"] == 1 and ing_launches["sha256_chunks"] > 0,
+          f"ingest launches: {ing_launches}")
+    check(ing_digests == [hashlib.sha256(c).digest() for c in ing_chunks],
+          "digest_chunks != hashlib")
+    emit({"phase": "ingest", "rows": N_STREAMS, "window": INGEST_WINDOW,
+          "packed_bytes": len(batch.buf), "padding_bytes": batch.padding_bytes,
+          "candidates": int(sum(len(e) for e in ends)), "chunks": len(ing_chunks),
+          "scan_s": scan_s, "scan_mib_s": len(batch.buf) / 2**20 / scan_s,
+          "digest_s": digest_s, "launches": ing_launches,
+          "stats": {k: ingest.stats[k] - stats0[k] for k in ingest.stats}})
+    del rows, batch, ing_chunks
+
+    # 12. timings at the main path's shapes ----------------------------------
     dbuf = dstream.view(len(tasks), seg)
     k1_ms = cuda_ms(lambda: rolling_hash.candidate_mask(
         dbuf, tables, P.mask, P.magic, history=dhist), 5)
@@ -603,15 +1004,100 @@ def main() -> int:
                  "max_blocks": int(blocks.max()), "blocks": int(blocks.sum()),
                  "ms_size_list": k2_small_ms, "plain_ms_size_list": k2_plain_ms},
           "k3": {"ms": k3_ms, "digests": n_d, "ms_1m_probes_with_upload": k3_1m_ms}})
-    emit({"torch_ops": [{
-        "name": "cuckoo_probe", "route": "torch",
-        "source": "pbs_plus_tpu_torch/ops/cuckoo.py",
-        "replaces": "pbs_plus_tpu/ops/cuckoo.py:87",
-        "launches": main_launches["cuckoo_probe"], "max_abs_err": 0,
-        "ms": k3_ms, "plain_ms": k3_ms, "bound_ms": k3_bound,
-        "bound_by": "bytes", "library_ms": k3_ms}]})
 
-    # 8. the kernels line ----------------------------------------------------
+    # the torch-op programs of this run's paths, on device-resident inputs
+    def bound(nbytes, ops, rate):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / rate * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+    da = torch.from_numpy(sim_a.copy()).to(dev)
+    proj64 = torch.from_numpy(similarity.simhash_projection(64).astype(np.float64)).to(dev)
+    sh_ms = cuda_ms(lambda: similarity._simhash(da, proj64, 64), 5)
+    sh_bound = bound(da.numel() + SIM_DIGESTS * 8, 2 * SIM_DIGESTS * 256 * 64, FP64_FLOPS)
+    mh_a, mh_b = similarity._minhash_params(128, 99)
+    mh_a = torch.from_numpy(mh_a.astype(np.int64)).to(dev)
+    mh_b = torch.from_numpy(mh_b.astype(np.int64)).to(dev)
+    mh_ms = cuda_ms(lambda: similarity._minhash(da, mh_a, mh_b), 5)
+    mh_bound = bound(da.numel() + 128 * 4, MINHASH_OPS * SIM_DIGESTS * 128, int32_ops_per_s)
+    ska = torch.from_numpy(sk_a.astype(np.int64)).to(dev)
+    skb = torch.from_numpy(sk_b.astype(np.int64)).to(dev)
+    ham_ms = cuda_ms(lambda: similarity.pairwise_hamming(ska, skb), 3)
+    ham_corner_ms = cuda_ms(lambda: similarity.pairwise_hamming(
+        ska[:SIM_CORNER], skb[:SIM_CORNER]), 5)
+    # both [10k, 2] word inputs read once, the [10k, 10k] int32 matrix written
+    ham_bound = bound(4 * (2 * 2 * SIM_DIGESTS + SIM_DIGESTS ** 2),
+                      HAMMING_OPS * 2 * SIM_DIGESTS ** 2, int32_ops_per_s)
+    cs_lens = np.array([max(4, len(c)) for c in step_chunks], dtype=np.int64)
+    cs_groups = []
+    for g in length_groups(cs_lens, similarity.GROUP_ELEMS):
+        padded = torch.zeros((len(g), int(cs_lens[g].max())), dtype=torch.uint8,
+                             device=dev)
+        for r, i in enumerate(g):
+            s_, e_ = step_bounds[i]
+            padded[r, :e_ - s_] = dstream[s_:e_]
+        cs_groups.append((padded, torch.from_numpy(cs_lens[g]).to(dev)))
+    cs_ms = cuda_ms(lambda: [similarity._content_sketch_words(p_, l_)
+                             for p_, l_ in cs_groups], 3)
+    cs_top = top(device_ms(lambda: [similarity._content_sketch_words(p_, l_)
+                                    for p_, l_ in cs_groups])[1], 6)
+    del cs_groups
+    cs_sample_ms = cuda_ms(lambda: similarity.content_sketch_device(cs_sample, device=dev), 3)
+    step_bytes = int(ln_np.sum())
+    cs_bound = bound(step_bytes + 8 * len(step_chunks), CS_OPS_PER_BYTE * step_bytes,
+                     int32_ops_per_s)
+    fold_ms = cuda_ms(lambda: fingerprint.fold_fingerprint(dstream, st_np, ln_np,
+                                                           fp_t_max), 3)
+    fold_bound = bound(step_bytes + 32 * len(step_chunks), FOLD_OPS_PER_BYTE * step_bytes,
+                       int32_ops_per_s)
+    fold_sample_ms = cuda_ms(lambda: fingerprint.fold_fingerprint(
+        dstream, st_np[fp_idx], ln_np[fp_idx], fp_t_max), 3)
+    emit({"phase": "torch_ops_profile", "card": card,
+          "content_sketch_top_device_ms": cs_top,
+          "fold_fingerprint_top_device_ms": top(device_ms(
+              lambda: fingerprint.fold_fingerprint(dstream, st_np, ln_np, fp_t_max))[1], 6),
+          "pairwise_hamming_top_device_ms": top(device_ms(
+              lambda: similarity.pairwise_hamming(ska, skb))[1], 6)})
+
+    def op_row(name, source, replaces, launches, ms, plain_ms, bnd, **extra):
+        return {"name": name, "route": "torch", "source": source,
+                "replaces": replaces, "launches": launches, "max_abs_err": 0,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None, **extra}
+
+    sim_src = "pbs_plus_tpu_torch/ops/similarity.py"
+    emit({"torch_ops": [
+        {"name": "cuckoo_probe", "route": "torch",
+         "source": "pbs_plus_tpu_torch/ops/cuckoo.py",
+         "replaces": "pbs_plus_tpu/ops/cuckoo.py:87",
+         "launches": main_launches["cuckoo_probe"], "max_abs_err": 0,
+         "ms": k3_ms, "plain_ms": k3_ms, "bound_ms": k3_bound,
+         "bound_by": "bytes", "library_ms": k3_ms},
+        op_row("simhash", sim_src, "pbs_plus_tpu/ops/similarity.py:56",
+               sim_launches["simhash"], sh_ms, sh_plain_ms, sh_bound,
+               shape=[SIM_DIGESTS, 64]),
+        op_row("minhash", sim_src, "pbs_plus_tpu/ops/similarity.py:103",
+               sim_launches["minhash"], mh_ms, mh_plain_ms, mh_bound,
+               shape=[SIM_DIGESTS, 128]),
+        op_row("pairwise_hamming", sim_src, "pbs_plus_tpu/ops/similarity.py:89",
+               sim_launches["pairwise_hamming"], ham_ms, ham_plain_ms, ham_bound,
+               shape=[SIM_DIGESTS, SIM_DIGESTS, 2],
+               plain_shape=f"{SIM_CORNER} x {SIM_CORNER} corner, "
+                           f"torch {ham_corner_ms} ms there"),
+        op_row("content_sketch", sim_src, "pbs_plus_tpu/ops/similarity.py:255",
+               sim_launches["content_sketch"], cs_ms, cs_plain_ms, cs_bound,
+               shape=f"{len(step_chunks)} chunks, {step_bytes} bytes",
+               ms_with_upload=cs_s * 1e3,
+               plain_shape=f"{CS_SAMPLE} of the chunks, torch {cs_sample_ms} ms "
+                           "there with the upload"),
+        op_row("fold_fingerprint", "pbs_plus_tpu_torch/ops/fingerprint.py",
+               "pbs_plus_tpu/ops/fingerprint.py:24",
+               fold_launches["fold_fingerprint"], fold_ms, fold_plain_ms, fold_bound,
+               shape=f"{len(step_chunks)} chunks, {step_bytes} bytes",
+               plain_shape=f"{FP_SAMPLE} of the chunks, torch {fold_sample_ms} ms there"),
+    ]})
+
+    # 13. the kernels line ---------------------------------------------------
     emit({"kernels": [
         {"name": "candidate_mask", "route": "cuda",
          "source": "pbs_plus_tpu_torch/ops/csrc/rolling_hash.cu",

@@ -7,20 +7,32 @@ asked for and absent; the tests pass ``device="cpu"``, which runs each
 kernel's plain PyTorch version.
 
 - ops: K1 candidate mask and K2 SHA-256 (CUDA C++ for sm_90a, built at
-  first use), K3 cuckoo probe in PyTorch ops.
+  first use), K3 cuckoo probe in PyTorch ops; fused ragged ingest on K1
+  and K2; similarity sketches and the fold fingerprint in PyTorch ops.
 - models: DedupPipeline (whole streams), CudaChunker + DeviceFeeder
-  (streaming writers), the ``"cuda"`` backend factories.
+  (streaming writers), the ``"cuda"`` backend factories, VerifyPipeline,
+  SimilarityModel.
+- sidecar: the dedup sidecar's gRPC service (DedupService,
+  serve_sidecar) and the wire half of its client; ``python -m
+  pbs_plus_tpu_torch sidecar`` runs it.
 - convert: index and chunker state carried across from the JAX package.
 """
 
 from .chunker.spec import (DEFAULT_PARAMS, TEST_PARAMS, WINDOW,
                            ChunkerParams, select_cuts)
-from .ops import (CuckooIndex, buckets_for_bytes, candidate_ends_host,
-                  candidate_mask, lookup_host, sha256_chunks,
-                  sha256_stream_chunks)
+from .ops import (HALO, CuckooIndex, RaggedBatch, buckets_for_bytes,
+                  candidate_ends_host, candidate_mask, content_sketch_device,
+                  content_sketch_host, digest_chunks, fold_fingerprint,
+                  fold_fingerprint_host, lookup_host, minhash_signature,
+                  minhash_signature_host, minhash_similarity, pack_rows,
+                  pairwise_hamming, pairwise_hamming_host, scan_rows,
+                  sha256_chunks, sha256_stream_chunks, simhash_projection,
+                  simhash_sketch, simhash_sketch_host, sketch_hamming)
 from .models import (ChunkRecord, CudaChunker, DedupConfig, DedupPipeline,
-                     DeviceFeeder, StreamResult, get_feeder,
+                     DeviceFeeder, SimilarityModel, StreamResult,
+                     VerifyPipeline, VerifyResult, get_feeder,
                      make_batch_hasher, make_chunker_factory)
+from .sidecar import DedupService, SidecarClient, serve_sidecar
 from .convert import index_from_reference, params_from_reference
 
 __all__ = [
@@ -31,5 +43,13 @@ __all__ = [
     "DedupPipeline", "DedupConfig", "StreamResult", "ChunkRecord",
     "CudaChunker", "DeviceFeeder", "get_feeder",
     "make_chunker_factory", "make_batch_hasher",
+    "HALO", "RaggedBatch", "pack_rows", "scan_rows", "digest_chunks",
+    "simhash_projection", "simhash_sketch", "simhash_sketch_host",
+    "pairwise_hamming", "pairwise_hamming_host",
+    "minhash_signature", "minhash_signature_host", "minhash_similarity",
+    "content_sketch_device", "content_sketch_host", "sketch_hamming",
+    "fold_fingerprint", "fold_fingerprint_host",
+    "VerifyPipeline", "VerifyResult", "SimilarityModel",
+    "DedupService", "serve_sidecar", "SidecarClient",
     "index_from_reference", "params_from_reference",
 ]

@@ -124,3 +124,101 @@ def test_sha256_kernel_long_chunk_among_short(cuda):
               zip(rng.integers(0, 1 << 20, 1000), rng.integers(0, 5000, 1000))]
     bounds.insert(517, (7, 7 + (16 << 20)))
     _sha_check(stream, bounds, cuda)
+
+
+def test_ingest_scan_and_digest_on_card_match_plain(cuda):
+    """One K1 launch over a packed ragged buffer (rows not 16-byte
+    aligned, short rows, zero history) == the plain scan; K2 == hashlib."""
+    from pbs_plus_tpu_torch.ops import ingest
+    rng = np.random.default_rng(21)
+    sizes = (10, 63, 64, 200, 5000, 100_003, 333_333)
+    rows = [[_bytes(n, 30 + i).tobytes()] for i, n in enumerate(sizes)]
+    tails = [_bytes(63, 40 + i).tobytes() if i % 2 else b""
+             for i in range(len(sizes))]
+    batch = ingest.pack_rows(rows, tails, [63 if t else 0 for t in tails],
+                             [int(x) for x in rng.integers(0, 1 << 30, len(sizes))])
+    before = rolling_hash.KERNEL.launches
+    got = ingest.scan_rows(batch, TEST_PARAMS, device=cuda)
+    assert rolling_hash.KERNEL.launches == before + 1
+    want = ingest.scan_rows(batch, TEST_PARAMS, device="cpu")
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    chunks = [r[0][:n] for r, n in zip(rows, (10, 63, 64, 200, 999, 4097, 0))]
+    assert ingest.digest_chunks(chunks, device=cuda) == \
+        [hashlib.sha256(c).digest() for c in chunks]
+
+
+def test_similarity_ops_on_card_match_host_twins(cuda):
+    from pbs_plus_tpu_torch.ops import similarity as S
+    digs = _bytes(32 * 3000, 22).reshape(-1, 32)
+    sk = S.simhash_sketch(digs, k=64, device=cuda)
+    assert sk.is_cuda
+    host = S.simhash_sketch_host(digs, k=64)
+    assert np.array_equal(sk.cpu().numpy().astype(np.uint32), host)
+    assert np.array_equal(S.pairwise_hamming(sk, sk[:500]).cpu().numpy(),
+                          S.pairwise_hamming_host(host, host[:500]))
+    for k in (64, 128, 256):
+        assert np.array_equal(S.minhash_signature(digs, k=k, device=cuda),
+                              S.minhash_signature_host(digs, k=k))
+    chunks = [_bytes(n, 50 + n).tobytes() for n in (0, 3, 4, 5, 100, 70_000)]
+    chunks.append(bytes(5000))
+    assert np.array_equal(S.content_sketch_device(chunks, device=cuda),
+                          S.content_sketch_host(chunks))
+
+
+def test_fold_fingerprint_on_card_matches_host(cuda):
+    from pbs_plus_tpu_torch.ops import fingerprint as F
+    lens = [0, 1, 63, 64, 65, 4097, 1 << 20]
+    stream = _bytes(sum(lens) + 9, 23)
+    starts = np.cumsum([9] + lens[:-1])
+    got = F.fold_fingerprint(stream, starts, lens, (max(lens) + 63) // 64,
+                             device=cuda).cpu().numpy().astype(np.uint32)
+    assert [w.astype(">u4").tobytes() for w in got] == \
+        [F.fold_fingerprint_host(stream[s:s + n].tobytes())
+         for s, n in zip(starts, lens)]
+
+
+def test_verify_snapshot_cross_checks_fetched_chunks_on_card(cuda):
+    """On the card a fetched chunk is re-hashed by K2, so a reader that
+    hands back wrong bytes without raising is caught; verdicts are the
+    same for 0 and 4 workers."""
+    from types import SimpleNamespace
+    from pbs_plus_tpu_torch.models import VerifyPipeline
+    chunks = [_bytes(n, 60 + i).tobytes()
+              for i, n in enumerate((100, 5000, 70_000, 3, 4096) * 4)]
+    digs = [hashlib.sha256(c).digest() for c in chunks]
+    store = dict(zip(digs, chunks))
+    store[digs[6]] = b"wrong bytes"
+
+    def fetch(d):
+        if d == digs[13]:
+            raise IOError("unreadable")
+        return store[d]
+
+    index = SimpleNamespace(ends=list(range(len(digs))),
+                            digest=lambda i: digs[i])
+    empty = SimpleNamespace(ends=[], digest=None)
+    reader = SimpleNamespace(entries=lambda: [], meta_index=empty,
+                             payload_index=index, fetch_chunk=fetch)
+    vp = VerifyPipeline(device=cuda)
+    results = [vp.verify_snapshot(reader, workers=w) for w in (0, 4)]
+    for r in results:
+        assert r.corrupt == [6, 13] or r.corrupt == [13, 6]
+    assert results[0].corrupt == results[1].corrupt
+    assert results[0].corrupt_paths == results[1].corrupt_paths
+
+
+def test_sidecar_service_on_card_matches_cpu(cuda):
+    from pbs_plus_tpu_torch.sidecar import DedupService
+    data = _bytes(300_000, 24).tobytes()
+    out = []
+    for device in (cuda, "cpu"):
+        svc = DedupService(params=TEST_PARAMS, index_buckets=1 << 10,
+                           device=device)
+        r = [svc.chunk({"stream_id": "s", "data": data[o:o + 65_536],
+                        "eof": o + 65_536 >= len(data)})
+             for o in range(0, len(data), 65_536)]
+        digs = [d for x in r for d in x["digests"]]
+        svc.insert_index({"digests": digs[::2]})
+        out.append((r, svc.probe_index({"digests": digs}),
+                    svc.snapshot_signature({"digests": digs})))
+    assert out[0] == out[1]

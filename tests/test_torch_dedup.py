@@ -22,7 +22,10 @@ from pbs_plus_tpu_torch.models import (CudaChunker, DedupConfig,
                                        DedupPipeline, DeviceFeeder,
                                        make_batch_hasher,
                                        make_chunker_factory)
-from pbs_plus_tpu_torch.ops import rolling_hash, sha256
+from pbs_plus_tpu_torch.models import SimilarityModel, VerifyPipeline
+from pbs_plus_tpu_torch.ops import (fingerprint, ingest, rolling_hash, sha256,
+                                    similarity)
+from pbs_plus_tpu_torch.sidecar import DedupService, serve_sidecar
 from pbs_plus_tpu_torch.utils.device import CudaUnavailableError
 
 REF_P = RefParams(avg_size=4 << 10)
@@ -135,25 +138,38 @@ def test_cuda_backend_in_session_writer(tmp_path):
 
 
 _GATE = r"""
-import importlib, pkgutil, sys
+import hashlib, importlib, pkgutil, sys
 
-class _NoJax:
+_BLOCKED = ("jax", "jaxlib", "grpc", "msgpack", "pbs_plus_tpu")
+
+class _Block:
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith("jax.") or name == "jaxlib" \
-                or name.startswith("jaxlib."):
-            raise ImportError("jax is blocked: " + name)
+        if name.split(".")[0] in _BLOCKED:
+            raise ImportError("blocked: " + name)
         return None
 
-sys.meta_path.insert(0, _NoJax())
+sys.meta_path.insert(0, _Block())
 import pbs_plus_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(pbs_plus_tpu_torch.__path__,
                                               "pbs_plus_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
 import chip_smoke
-bad = [m for m in sys.modules
-       if m == "pbs_plus_tpu" or m.startswith("pbs_plus_tpu.")
-       or m == "jax" or m.startswith("jax.")]
+
+# the sidecar's service runs without grpc and msgpack
+from pbs_plus_tpu_torch.chunker.spec import TEST_PARAMS
+from pbs_plus_tpu_torch.sidecar import DedupService
+svc = DedupService(params=TEST_PARAMS, index_buckets=1 << 10, device="cpu")
+data = bytes(range(256)) * 40
+r = svc.chunk({"stream_id": "s", "data": data, "eof": True})
+assert r["cuts"][-1] == len(data) and sum(r["sizes"]) == len(data)
+assert r["digests"][0] == hashlib.sha256(data[:r["cuts"][0]]).digest()
+assert svc.insert_index({"digests": r["digests"]})["inserted"] >= 1
+assert all(svc.probe_index({"digests": r["digests"]})["present"])
+assert len(svc.snapshot_signature({"digests": r["digests"]})["signature"]) == 128
+assert svc.get_stats({})["use_tpu"] is False
+
+bad = [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
 assert not bad, bad
 print(len(mods))
 """
@@ -163,7 +179,7 @@ def test_port_imports_without_jax_or_reference():
     r = subprocess.run([sys.executable, "-c", _GATE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 13
+    assert int(r.stdout.split()[-1]) >= 27
 
 
 def test_cuda_request_raises_without_card():
@@ -177,3 +193,20 @@ def test_cuda_request_raises_without_card():
         make_chunker_factory("cuda")(P)
     with pytest.raises(CudaUnavailableError):
         sha256.sha256_chunks([b"abc"])
+    digs = np.zeros((2, 32), dtype=np.uint8)
+    for call in (
+            lambda: DedupService(params=P),
+            lambda: serve_sidecar(params=P),
+            lambda: VerifyPipeline(),
+            lambda: SimilarityModel(),
+            lambda: similarity.simhash_sketch(digs),
+            lambda: similarity.minhash_signature(digs),
+            lambda: similarity.pairwise_hamming(np.zeros((2, 2), np.uint32),
+                                                np.zeros((2, 2), np.uint32)),
+            lambda: similarity.content_sketch_device([b"abcd"]),
+            lambda: fingerprint.fold_fingerprint(b"abcd", [0], [4], 1),
+            lambda: ingest.scan_rows(ingest.pack_rows([[b"x" * 100]], [b""],
+                                                      [0], [0]), P),
+            lambda: ingest.digest_chunks([b"abc"])):
+        with pytest.raises(CudaUnavailableError):
+            call()
