@@ -41,7 +41,21 @@ runs one phase per line:
 10. fingerprint fold fingerprints of the step's chunks
 11. ingest    the 8 streams' next 32 MiB windows packed into one ragged
               buffer, scanned by one K1 launch, the cut chunks digested
-12. timings   each kernel's and torch-op program's time, bound, plain and
+12. index     the store's DedupIndex on the card at a server's defaults
+              (64 MiB table, 256 MiB memtable, spill segments): 4 Mi
+              digests preloaded, 1 Mi probed in batches of 1,024 (each
+              followed by the insert of its novel half) and 16 Ki in
+              batches of 64, every answer held against a Python set; the
+              device table's row copies against whole uploads; snapshot,
+              reload and boot seconds; discards; one filter growth
+13. dist_index two ``python -m pbs_plus_tpu_torch index-shard`` nodes on the
+              card behind the port's DistIndexClient over loopback HTTP:
+              1 Mi inserts, 256 Ki probes in batches of 1,024, a rebalance
+              to a third node, snapshots on exit
+14. similarity_index SimilarityIndex on the card: presketch of the step's
+              chunks; sketches and candidates of a sample held against
+              the same index on the CPU
+15. timings   each kernel's and torch-op program's time, bound, plain and
               library times
 
 then a ``{"torch_ops": [...]}`` and a ``{"kernels": [...]}`` line, the
@@ -56,6 +70,8 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -90,6 +106,24 @@ CS_SAMPLE = 32            # content sketches held against numpy on these
 FP_SAMPLE = 16            # fold fingerprints held against numpy on these
 VERIFY_SNAPSHOT_CHUNKS = 48   # chunks behind the snapshot reader
 INGEST_WINDOW = 32 << 20  # each stream's window in the fused-ingest batch
+# the index tier at a server's defaults (PBS_PLUS_DEDUP_INDEX_MB=64,
+# PBS_PLUS_DEDUP_RESIDENT_MB=256): 4 Mi digests are a 16 TiB datastore of
+# 4 MiB chunks, a filter load of 0.5, and spill the 112 B/entry memtable
+INDEX_BUDGET_MB = 64
+INDEX_RESIDENT_MB = 256
+INDEX_PRELOAD = 1 << 22
+INDEX_INSERT_BATCH = 1 << 16
+INDEX_PROBES = 1 << 20        # in batches of 1,024, half present
+INDEX_SMALL_BATCHES = 256     # batches of 64: a lone writer's flushes
+INDEX_RECOVERY_PROBES = 1 << 16
+GROW_BUDGET_MB = 8            # grown past its load factor by GROW_INSERTS
+GROW_INSERTS = 1 << 20
+DIST_INSERTS = 1 << 20        # through two shard nodes
+DIST_PROBES = 1 << 18         # in batches of 1,024, half present
+SIMI_SAMPLE = 32              # SimilarityIndex sketches held against the CPU
+SIMI_VARIANTS = 16            # near-duplicates of the sample's first chunks
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
 
 # H100 SXM data sheet: HBM3 at 3.35 TB/s; 132 SMs with 64 int32 lanes each,
 # at the card's max SM clock (read from nvidia-smi)
@@ -267,6 +301,391 @@ def hamming_pairs_host(a: np.ndarray, b: np.ndarray, max_distance: int):
         ii, jj = np.nonzero(d <= max_distance)
         out += [(int(i) + r, int(j), int(d[i, j])) for i, j in zip(ii, jj)]
     return out
+
+
+def digests_of(rng, n: int) -> list[bytes]:
+    """``n`` random 32-byte digests (distinct with overwhelming odds)."""
+    raw = rng.bytes(32 * n)
+    return [raw[i:i + 32] for i in range(0, 32 * n, 32)]
+
+
+def pct(ms: list[float]) -> dict:
+    return {"p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def index_phase(dev, seed: int) -> dict:
+    """The store's DedupIndex at a server's defaults (phase 12)."""
+    from pbs_plus_tpu_torch.ops import cuckoo
+    from pbs_plus_tpu_torch.pxar import chunkindex, digestlog
+    from pbs_plus_tpu_torch.utils import trace
+
+    def mirror_equal(ix) -> bool:
+        c = ix._cuckoo
+        t = c.device_table().cpu().numpy()
+        return np.array_equal(t, c._table.view(np.int64).reshape(c.n_buckets, -1))
+
+    def probe_exact(ix, batch, truth, what) -> list[bool]:
+        got = ix.probe_batch(batch)
+        check(got == [d in truth for d in batch], f"index {what} != a Python set")
+        return got
+
+    rng = np.random.default_rng(seed + 13)
+    spill = os.path.join(SCRATCH, "index")
+    shutil.rmtree(spill, ignore_errors=True)
+    for k in cuckoo.stats:
+        cuckoo.stats[k] = 0
+    m0 = chunkindex.metrics_snapshot()
+    idx = chunkindex.DedupIndex(budget_mb=INDEX_BUDGET_MB, seed=seed,
+                                spill_dir=spill, resident_mb=INDEX_RESIDENT_MB,
+                                device=dev)
+    check(idx.table_bytes == INDEX_BUDGET_MB << 20, "the table fills its budget")
+    pre = digests_of(rng, INDEX_PRELOAD)
+    t0 = time.perf_counter()
+    added = sum(idx.insert_many(pre[i:i + INDEX_INSERT_BATCH])
+                for i in range(0, len(pre), INDEX_INSERT_BATCH))
+    preload_s = time.perf_counter() - t0
+    truth = set(pre)
+    check(added == len(truth) == len(idx), "the preload is counted exactly")
+    spilled = len(pre) * 112 > INDEX_RESIDENT_MB << 20
+    check(idx.digestlog.segment_count >= int(spilled), "the memtable spilled")
+    preload_launches = cuckoo.stats["device_probes"]
+
+    # probe-then-insert in batches of 1,024 and of 64, half present
+    def traffic(n_batches, size):
+        up_ms, probe_ms, ins_ms = [], [], []
+        for _ in range(n_batches):
+            present = [pre[j] for j in rng.integers(0, len(pre), size // 2)]
+            batch = present + digests_of(rng, size - size // 2)
+            batch = [batch[j] for j in rng.permutation(size)]
+            want = [d in truth for d in batch]
+            t0 = time.perf_counter()
+            idx._cuckoo.device_table()          # the rows the last insert wrote
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = idx.probe_batch(batch)
+            t2 = time.perf_counter()
+            novel = [d for d, g in zip(batch, got) if not g]
+            idx.insert_many(novel)
+            t3 = time.perf_counter()
+            check(got == want, f"index probe at {size} != a Python set")
+            truth.update(novel)
+            up_ms.append((t1 - t0) * 1e3)
+            probe_ms.append((t2 - t1) * 1e3)
+            ins_ms.append((t3 - t2) * 1e3)
+        return up_ms, probe_ms, ins_ms
+
+    for k in cuckoo.stats:
+        cuckoo.stats[k] = 0
+    hist = "pbs_plus_digestlog_confirm_read_seconds"
+    r0 = digestlog.metrics_snapshot()["confirm_reads"]
+    h0 = trace.histograms().get(hist, {"sum_s": 0.0})["sum_s"]
+    up_big, probe_big, ins_big = traffic(INDEX_PROBES // 1024, 1024)
+    # the store's loop: the upload (inside probe_batch in real use), the
+    # probe and the insert of the novel half; digest making and the set
+    # check are left out
+    big_s = (sum(up_big) + sum(probe_big) + sum(ins_big)) / 1e3
+    confirm_reads = digestlog.metrics_snapshot()["confirm_reads"] - r0
+    confirm_read_s = trace.histograms()[hist]["sum_s"] - h0 if confirm_reads else 0.0
+    up_small, probe_small, ins_small = traffic(INDEX_SMALL_BATCHES, 64)
+    traffic_stats = dict(cuckoo.stats)
+    if dev.type == "cuda":
+        check(traffic_stats["device_probes"] >= INDEX_PROBES // 1024
+              + INDEX_SMALL_BATCHES, f"K3 did not run per probe batch: {traffic_stats}")
+    check(mirror_equal(idx), "device table != host mirror after the traffic")
+    m1 = chunkindex.metrics_snapshot()
+
+    # a 1,024 batch's probe by layer: the filter pass (K3 with its upload
+    # of the digests and download of the verdicts) and the exact confirm
+    # of its positives against the memtable and the spilled segments
+    filter_ms, confirm_ms = [], []
+    for _ in range(64):
+        batch = [pre[j] for j in rng.integers(0, len(pre), 512)] \
+            + digests_of(rng, 512)
+        arr = np.frombuffer(b"".join(batch), np.uint8).reshape(-1, 32)
+        t0 = time.perf_counter()
+        pos = np.flatnonzero(idx._probe_arr(arr))
+        t1 = time.perf_counter()
+        idx.digestlog.flags_arr(batch, arr, pos)
+        t2 = time.perf_counter()
+        filter_ms.append((t1 - t0) * 1e3)
+        confirm_ms.append((t2 - t1) * 1e3)
+
+    # the same probes against the whole-table copy the reference makes per
+    # batch, and K3 alone on the 64 MiB table
+    t64 = idx._cuckoo._table.view(np.int64).reshape(idx.n_buckets, -1)
+    full_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        torch.from_numpy(t64.copy()).to(dev)
+        torch.cuda.synchronize()
+        full_ms.append((time.perf_counter() - t0) * 1e3)
+    table = idx._cuckoo.device_table()
+    k3 = {}
+    for n in (1024, 64):
+        d = torch.from_numpy(np.frombuffer(b"".join(pre[:n]), np.uint8)
+                             .reshape(-1, 32).copy()).to(dev)
+        k3[n] = {"device_ms": None, "event_ms_with_launches": None,
+                 "bound_ms": n * (32 + 2 * cuckoo.BUCKET_BYTES + 1)
+                 / HBM_BYTES_PER_S * 1e3}
+        if dev.type == "cuda":
+            # device time: the profiler's sum over K3's ~10 small kernels;
+            # the event time around the call also holds their launches
+            reps = 50
+            _, k3_kernels = device_ms(
+                lambda: [cuckoo._lookup(table, d) for _ in range(reps)])
+            k3[n]["device_ms"] = sum(k3_kernels.values()) / reps
+            k3[n]["event_ms_with_launches"] = cuda_ms(
+                lambda: cuckoo._lookup(table, d), reps)
+
+    # recovery: snapshot (a manifest over the segments), reload, same answers
+    snap = os.path.join(spill, "snapshot")
+    t0 = time.perf_counter()
+    idx.save_snapshot(snap)
+    save_s = time.perf_counter() - t0
+    segments = idx.digestlog.segment_count
+    resident = idx.resident_bytes
+    sample = [pre[j] for j in rng.integers(0, len(pre), INDEX_RECOVERY_PROBES // 2)] \
+        + digests_of(rng, INDEX_RECOVERY_PROBES // 2)
+    before = probe_exact(idx, sample, truth, "probe before the reload")
+    n_live = len(idx)
+    del idx
+    t0 = time.perf_counter()
+    idx = chunkindex.DedupIndex(budget_mb=INDEX_BUDGET_MB, seed=seed,
+                                spill_dir=spill, resident_mb=INDEX_RESIDENT_MB,
+                                device=dev)
+    check(idx.load_snapshot(snap), "the snapshot reloads")
+    boot_s = time.perf_counter() - t0
+    check(len(idx) == n_live, "the reload holds every digest")
+    check(probe_exact(idx, sample, truth, "probe after the reload") == before,
+          "answers changed across the reload")
+
+    # discards: 10% of the preload, then none of them probes present
+    gone = pre[::10]
+    t0 = time.perf_counter()
+    check(all(idx.discard_many_acked(gone)), "every discard is acked")
+    discard_s = time.perf_counter() - t0
+    truth.difference_update(gone)
+    for i in range(0, len(gone), 1 << 16):
+        check(not any(idx.probe_batch(gone[i:i + (1 << 16)])),
+              "a discarded digest probes present")
+    check(mirror_equal(idx), "device table != host mirror after the discards")
+    n_after = len(idx)
+    del idx, truth, pre
+
+    # one growth under spill: the filter streams the live digests back
+    grow_dir = os.path.join(SCRATCH, "grow")
+    shutil.rmtree(grow_dir, ignore_errors=True)
+    g = chunkindex.DedupIndex(budget_mb=GROW_BUDGET_MB, seed=seed,
+                              spill_dir=grow_dir, device=dev)
+    nb0 = g.n_buckets
+    gd = digests_of(rng, GROW_INSERTS)
+    t0 = time.perf_counter()
+    for i in range(0, len(gd), INDEX_INSERT_BATCH):
+        g.insert_many(gd[i:i + INDEX_INSERT_BATCH])
+    grow_s = time.perf_counter() - t0
+    check(g.n_buckets == 2 * nb0, f"the filter grew once: {nb0} -> {g.n_buckets}")
+    gtruth = set(gd)
+    probe_exact(g, gd[::64] + digests_of(rng, len(gd[::64])), gtruth,
+                "probe after growth")
+    check(mirror_equal(g), "device table != host mirror after growth")
+    del g, gd, gtruth
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    n_probes = INDEX_PROBES + 64 * INDEX_SMALL_BATCHES
+    return {"phase": "index", "budget_mb": INDEX_BUDGET_MB,
+            "resident_mb": INDEX_RESIDENT_MB, "preloaded": INDEX_PRELOAD,
+            "preload_s": preload_s, "preload_k3_launches": preload_launches,
+            "probes": n_probes, "batch_1024_probes_per_s": INDEX_PROBES / big_s,
+            "batch_1024_loop_s": big_s,
+            "batch_1024_probe_only_probes_per_s":
+            INDEX_PROBES / sum(probe_big) * 1e3,
+            "batch_1024": {**pct(probe_big), "upload": pct(up_big),
+                           "insert": pct(ins_big)},
+            "batch_64": {**pct(probe_small), "upload": pct(up_small),
+                         "insert": pct(ins_small)},
+            "batch_1024_layers": {"filter": pct(filter_ms),
+                                  "confirm": pct(confirm_ms)},
+            "batch_1024_confirm_reads": confirm_reads,
+            "batch_1024_confirm_read_s": confirm_read_s,
+            "k3_launches": traffic_stats["device_probes"],
+            "k3_ms": {str(n): v for n, v in k3.items()},
+            "uploads": {"whole": traffic_stats["table_uploads"],
+                        "row_copies": traffic_stats["row_uploads"],
+                        "bytes": traffic_stats["upload_bytes"],
+                        "ms_total": sum(up_big) + sum(up_small),
+                        "whole_table_ms_median": float(np.median(full_ms))},
+            "false_positives": m1["false_positives"] - m0["false_positives"],
+            "segments": segments, "resident_bytes": resident,
+            "save_s": save_s, "boot_s": boot_s, "live": n_live,
+            "discarded": len(gone), "discard_s": discard_s, "live_after": n_after,
+            "growth": {"budget_mb": GROW_BUDGET_MB, "inserts": GROW_INSERTS,
+                       "buckets": [nb0, 2 * nb0], "insert_s": grow_s}}
+
+
+def dist_index_phase(dev, seed: int) -> dict:
+    """Two shard nodes on the card behind DistIndexClient (phase 13)."""
+    from pbs_plus_tpu_torch.parallel import DistIndexClient, ShardMap, dist_index
+
+    root = os.path.join(SCRATCH, "dist")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    token = "chip-smoke"
+    procs: dict[str, subprocess.Popen] = {}
+
+    def spawn(sids):
+        for sid in sids:
+            procs[sid] = subprocess.Popen(
+                [sys.executable, "-m", "pbs_plus_tpu_torch", "index-shard",
+                 "--shard-id", sid, "--port", "0", "--token", token,
+                 "--spill-dir", os.path.join(root, sid),
+                 "--budget-mb", str(INDEX_BUDGET_MB),
+                 "--resident-mb", str(INDEX_RESIDENT_MB),
+                 "--snapshot", os.path.join(root, f"{sid}.snap"),
+                 "--device", dev.type],
+                cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                stderr=open(os.path.join(root, f"{sid}.err"), "wb"))
+        out = {}
+        for sid in sids:                          # started together
+            line = {}
+            t = threading.Thread(target=lambda s=sid: line.update(
+                json.loads(procs[s].stdout.readline() or b"{}")), daemon=True)
+            t.start()
+            t.join(180)
+            check(line.get("event") == "ready",
+                  f"shard {sid} never came up: {open(os.path.join(root, sid + '.err')).read()[-2000:]}")
+            out[sid] = f"http://127.0.0.1:{line['port']}"
+        return out
+
+    try:
+        t0 = time.perf_counter()
+        urls = spawn(["s0", "s1"])
+        start_s = time.perf_counter() - t0
+        cli = DistIndexClient(endpoints=list(urls.items()), token=token,
+                              timeout_s=600)
+        rng = np.random.default_rng(seed + 17)
+        digs = digests_of(rng, DIST_INSERTS)
+        t0 = time.perf_counter()
+        added = sum(cli.insert_many(digs[i:i + INDEX_INSERT_BATCH])
+                    for i in range(0, len(digs), INDEX_INSERT_BATCH))
+        insert_s = time.perf_counter() - t0
+        check(added == len(digs), f"inserted {added} of {len(digs)}")
+        truth = set(digs)
+        batches = []
+        for _ in range(DIST_PROBES // 1024):
+            b = [digs[j] for j in rng.integers(0, len(digs), 512)] \
+                + digests_of(rng, 512)
+            batches.append([b[j] for j in rng.permutation(1024)])
+        w0 = dist_index.metrics_snapshot()
+        ms, answers = [], []
+        t0 = time.perf_counter()
+        for b in batches:
+            t1 = time.perf_counter()
+            answers.append(cli.probe_batch(b))
+            ms.append((time.perf_counter() - t1) * 1e3)
+        probe_s = time.perf_counter() - t0
+        w1 = dist_index.metrics_snapshot()
+        for b, a in zip(batches, answers):
+            check(a == [d in truth for d in b], "dist probe != a Python set")
+        wire = w1["wire_requests"] - w0["wire_requests"]
+        check(wire <= 2 * len(batches), f"{wire} wire requests for {len(batches)} batches")
+
+        # rebalance to a third node: one owner per digest, same answers
+        urls.update(spawn(["s2"]))
+        new_map = ShardMap(list(urls.items()), epoch=cli.shard_map.epoch + 1)
+        t0 = time.perf_counter()
+        reb = cli.rebalance(new_map)
+        rebalance_s = time.perf_counter() - t0
+        held = {}
+        for si, (sid, url) in enumerate(urls.items()):
+            one = DistIndexClient(ShardMap([(sid, url)]), token=token, timeout_s=600)
+            mine = list(one.digests())
+            one.close()
+            arr = np.frombuffer(b"".join(mine), np.uint8).reshape(-1, 32)
+            check(bool((new_map.owner_indices(arr) == si).all()),
+                  f"{sid} holds digests it does not own")
+            held[sid] = mine
+        check(sum(len(v) for v in held.values()) == len(truth)
+              and set().union(*map(set, held.values())) == truth,
+              "after the rebalance every digest has exactly one owner")
+        for b, a in zip(batches, answers):
+            check(cli.probe_batch(b) == a, "answers changed across the rebalance")
+        cli.close()
+    finally:
+        exits = {}
+        for sid, p in procs.items():
+            try:
+                tail = p.communicate(b"exit\n", timeout=180)[0].splitlines()
+                exits[sid] = json.loads(tail[-1]) if tail else {}
+            except (OSError, ValueError, subprocess.TimeoutExpired):
+                p.kill()
+                p.wait(30)
+    for sid in procs:
+        check(exits.get(sid, {}).get("event") == "exit"
+              and os.path.exists(os.path.join(root, f"{sid}.snap")),
+              f"shard {sid} did not exit cleanly with its snapshot")
+    launches = {sid: e["device_probes"] for sid, e in exits.items()}
+    if dev.type == "cuda":
+        check(all(v > 0 for v in launches.values()),
+              f"a shard node did not probe with K3: {launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"phase": "dist_index", "nodes": len(procs), "start_s": start_s,
+            "inserts": DIST_INSERTS, "insert_s": insert_s,
+            "probes": DIST_PROBES, "probe_s": probe_s,
+            "probes_per_s": DIST_PROBES / probe_s, **pct(ms),
+            "wire_requests": wire, "batches": len(batches),
+            "rebalance": {**reb, "seconds": rebalance_s,
+                          "held": {k: len(v) for k, v in held.items()}},
+            "k3_launches": launches}
+
+
+def similarity_index_phase(dev, chunks: list, digests: list, seed: int) -> dict:
+    """SimilarityIndex on the card (phase 14)."""
+    from pbs_plus_tpu_torch.ops import similarity
+    from pbs_plus_tpu_torch.pxar import SimilarityIndex
+
+    si = SimilarityIndex(device=dev)
+    similarity.stats["content_sketch"] = 0
+    t0 = time.perf_counter()
+    n = si.presketch(digests, chunks, None)
+    presketch_s = time.perf_counter() - t0
+    launches = similarity.stats["content_sketch"]
+    check(n == len(chunks), "presketch sketched every chunk")
+    if dev.type == "cuda":
+        check(launches > 0, "presketch did not run the content sketch")
+    # a sample and near-duplicates of its first chunks through the write
+    # path's calls, on the card and on the CPU: equal sketches and answers
+    rng = np.random.default_rng(seed + 19)
+    pick = np.linspace(0, len(chunks) - 1, SIMI_SAMPLE).astype(int)
+    sample = [chunks[i] for i in pick]
+    sdigs = [digests[i] for i in pick]
+    variants, vdigs = [], []
+    for c in sample[:SIMI_VARIANTS]:
+        v = bytearray(c)
+        for at in rng.integers(0, len(v) - 64, 3):
+            v[at:at + 16] = rng.bytes(16)
+        variants.append(bytes(v))
+        vdigs.append(hashlib.sha256(v).digest())
+    answers = {}
+    for where in (dev, "cpu"):
+        x = SimilarityIndex(device=where)
+        out = []
+        for ds, cs in ((sdigs, sample), (vdigs, variants)):
+            x.presketch(ds, cs, None)
+            for d, c in zip(ds, cs):
+                s = x.take_sketch(d, c)
+                out.append((s, x.take_candidate(d, s), x.candidate(s)))
+                x.add(d, s, 0)
+        answers[str(where)] = out
+    check(answers[str(dev)] == answers["cpu"],
+          "SimilarityIndex on the card != on the CPU")
+    found = sum(1 for (_, cand, _), d in zip(answers["cpu"][SIMI_SAMPLE:], sdigs)
+                if cand is not None and cand[0] == d)
+    check(found > 0, "no near-duplicate found its base")
+    return {"phase": "similarity_index", "chunks": len(chunks),
+            "bytes": sum(len(c) for c in chunks), "presketch_s": presketch_s,
+            "launches": {"content_sketch": launches},
+            "sample": SIMI_SAMPLE, "variants": SIMI_VARIANTS,
+            "variants_found_base": found}
 
 
 def main() -> int:
@@ -957,7 +1376,13 @@ def main() -> int:
           "stats": {k: ingest.stats[k] - stats0[k] for k in ingest.stats}})
     del rows, batch, ing_chunks
 
-    # 12. timings at the main path's shapes ----------------------------------
+    # 12-14. the store's index tier ---------------------------------------
+    ix = index_phase(dev, args.seed)
+    emit(ix)
+    emit(dist_index_phase(dev, args.seed))
+    emit(similarity_index_phase(dev, step_chunks, step_digests, args.seed))
+
+    # 15. timings at the main path's shapes ----------------------------------
     dbuf = dstream.view(len(tasks), seg)
     k1_ms = cuda_ms(lambda: rolling_hash.candidate_mask(
         dbuf, tables, P.mask, P.magic, history=dhist), 5)
@@ -1072,7 +1497,11 @@ def main() -> int:
          "replaces": "pbs_plus_tpu/ops/cuckoo.py:87",
          "launches": main_launches["cuckoo_probe"], "max_abs_err": 0,
          "ms": k3_ms, "plain_ms": k3_ms, "bound_ms": k3_bound,
-         "bound_by": "bytes", "library_ms": k3_ms},
+         "bound_by": "bytes", "library_ms": k3_ms,
+         "index": {"launches": ix["k3_launches"],
+                   "table_bytes": INDEX_BUDGET_MB << 20,
+                   "batch_ms": ix["k3_ms"],
+                   "uploads": ix["uploads"]}},
         op_row("simhash", sim_src, "pbs_plus_tpu/ops/similarity.py:56",
                sim_launches["simhash"], sh_ms, sh_plain_ms, sh_bound,
                shape=[SIM_DIGESTS, 64]),
@@ -1097,7 +1526,7 @@ def main() -> int:
                plain_shape=f"{FP_SAMPLE} of the chunks, torch {fold_sample_ms} ms there"),
     ]})
 
-    # 13. the kernels line ---------------------------------------------------
+    # 16. the kernels line ---------------------------------------------------
     emit({"kernels": [
         {"name": "candidate_mask", "route": "cuda",
          "source": "pbs_plus_tpu_torch/ops/csrc/rolling_hash.cu",

@@ -15,6 +15,13 @@ kernel's plain PyTorch version.
 - sidecar: the dedup sidecar's gRPC service (DedupService,
   serve_sidecar) and the wire half of its client; ``python -m
   pbs_plus_tpu_torch sidecar`` runs it.
+- pxar: the store's dedup-index tier -- DedupIndex (the ``index=`` of a
+  JAX ``ChunkStore``; K3 on the card), the spillable DigestLog and the
+  delta tier's SimilarityIndex; snapshots, segments and manifests are
+  byte-identical to the JAX package's.
+- parallel: the distributed index's service half (ShardMap,
+  IndexShardServer, DistIndexClient) on the JAX package's HTTP wire;
+  ``python -m pbs_plus_tpu_torch index-shard`` runs one shard node.
 - convert: index and chunker state carried across from the JAX package.
 """
 
@@ -33,6 +40,8 @@ from .models import (ChunkRecord, CudaChunker, DedupConfig, DedupPipeline,
                      VerifyPipeline, VerifyResult, get_feeder,
                      make_batch_hasher, make_chunker_factory)
 from .sidecar import DedupService, SidecarClient, serve_sidecar
+from .pxar import DedupIndex, DigestLog, SimilarityIndex
+from .parallel import DistIndexClient, IndexShardServer, ShardMap
 from .convert import index_from_reference, params_from_reference
 
 __all__ = [
@@ -51,5 +60,7 @@ __all__ = [
     "fold_fingerprint", "fold_fingerprint_host",
     "VerifyPipeline", "VerifyResult", "SimilarityModel",
     "DedupService", "serve_sidecar", "SidecarClient",
+    "DedupIndex", "DigestLog", "SimilarityIndex",
+    "DistIndexClient", "IndexShardServer", "ShardMap",
     "index_from_reference", "params_from_reference",
 ]

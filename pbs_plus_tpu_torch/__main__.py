@@ -1,4 +1,5 @@
-"""Command line of the port: ``python -m pbs_plus_tpu_torch sidecar``.
+"""Command line of the port: ``python -m pbs_plus_tpu_torch sidecar`` and
+``python -m pbs_plus_tpu_torch index-shard``.
 
     python -m pbs_plus_tpu_torch sidecar --listen 127.0.0.1:18900 \\
         --chunk-avg 4194304 --device cuda
@@ -6,12 +7,21 @@
 serves the dedup sidecar on the card (``--device cpu`` runs the plain
 versions on the CPU; ``cuda`` without a card raises).  A backup server
 reaches it through a job row with ``chunker = "sidecar:127.0.0.1:18900"``.
+
+    python -m pbs_plus_tpu_torch index-shard --shard-id s0 --port 9001 \\
+        --spill-dir /srv/idx/s0 --snapshot /srv/idx/s0.snap --device cuda
+
+runs one node of the distributed dedup index (the JAX package's flags,
+ready line and stdin protocol); a server reaches it through
+``PBS_PLUS_DIST_INDEX_SHARDS="s0=127.0.0.1:9001,s1=127.0.0.1:9002"``.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+from .parallel.dist_index import add_shard_arguments
 
 
 def _cmd_sidecar(args: argparse.Namespace) -> int:
@@ -29,6 +39,11 @@ def _cmd_sidecar(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_index_shard(args: argparse.Namespace) -> int:
+    from .parallel.dist_index import serve_shard
+    return serve_shard(args)
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m pbs_plus_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -37,6 +52,10 @@ def main(argv: list[str] | None = None) -> int:
     d.add_argument("--chunk-avg", type=int, default=4 << 20)
     d.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     d.set_defaults(fn=_cmd_sidecar)
+    x = sub.add_parser("index-shard",
+                       help="run one node of the distributed dedup index")
+    add_shard_arguments(x)
+    x.set_defaults(fn=_cmd_index_shard)
     args = ap.parse_args(argv)
     return args.fn(args)
 

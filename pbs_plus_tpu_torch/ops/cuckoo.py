@@ -7,10 +7,22 @@ bucket 1 ^ mix(fingerprint).  A probe is a gather of the two buckets and a
 compare, in PyTorch ops on the index's device (the TPU side left it to XLA
 the same way; no hand kernel).  Inserts run on the host numpy mirror, which
 stays authoritative: after the same inserts and seed its bytes equal the JAX
-package's.  ``device_table`` re-uploads the mirror after inserts.
+package's.
+
+``device_table`` keeps the device copy current.  The reference re-uploads
+the whole mirror after any insert; at the default 64 MiB table that is a
+64 MiB host-to-device copy per probe batch in the store's probe-then-insert
+loop.  Here every write to the mirror records its bucket, and the next
+``device_table`` copies only those rows (one gather on the host, one
+``index_copy_`` on the device); a rebuild or growth, which reallocates the
+mirror, uploads it whole.  ``stats`` counts both kinds of upload and their
+bytes.
 """
 
 from __future__ import annotations
+
+import functools
+import threading
 
 import numpy as np
 import torch
@@ -67,8 +79,10 @@ def lookup_host(table: np.ndarray, digests: np.ndarray) -> np.ndarray:
     return hit
 
 
-# device probes made by ``_lookup`` (the K3 gather/compare), on any device
-stats = {"device_probes": 0}
+# device probes made by ``_lookup`` (the K3 gather/compare), on any device,
+# and the device table's uploads: whole-table copies, row copies, bytes
+stats = {"device_probes": 0, "table_uploads": 0, "row_uploads": 0,
+         "upload_bytes": 0}
 
 
 def _lookup(table64: torch.Tensor, digests: torch.Tensor) -> torch.Tensor:
@@ -92,18 +106,39 @@ def _lookup(table64: torch.Tensor, digests: torch.Tensor) -> torch.Tensor:
     return hit | (table64[b2] == fpc[:, None]).any(dim=1)
 
 
+def _locked(method):
+    """Run ``method`` under the index's lock (see ``CuckooIndex``)."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with self._lock:
+            return method(self, *args, **kwargs)
+    return run
+
+
 class CuckooIndex:
-    """Chunk-presence index: device-probe, host-authoritative."""
+    """Chunk-presence index: device-probe, host-authoritative.
+
+    Every public method runs under one re-entrant lock, so callers that
+    share an index across threads (the sidecar's gRPC handlers) cannot
+    interleave a mirror write with the row bookkeeping of
+    ``device_table``: a bucket written between the gather of the touched
+    rows and their reset would otherwise stay stale on the device."""
 
     def __init__(self, n_buckets: int = 1 << 16, seed: int = 0, *,
                  device="cuda"):
         if n_buckets & (n_buckets - 1):
             raise ValueError("n_buckets must be a power of two")
         self.device = resolve(device)
+        self._lock = threading.RLock()
         self.n_buckets = n_buckets
         self._table = np.zeros((n_buckets, SLOTS, 2), dtype=np.uint32)
         self._device_table: torch.Tensor | None = None
+        # _dirty: the device copy must be uploaded whole; _touched: the
+        # buckets written since the last upload (ints from scalar writes,
+        # arrays from bulk placements), _n_touched their count
         self._dirty = True
+        self._touched: list = []
+        self._n_touched = 0
         self._known: set[bytes] = set()       # authoritative
         self._rng = np.random.default_rng(seed)
         # filter-only mode (the spillable exact tier, pxar/digestlog.py):
@@ -132,6 +167,7 @@ class CuckooIndex:
         b2 = b1 ^ ((fp0 * int(_MIX)) & 0xFFFFFFFF & mask)
         return fp0, fp1, b1, b2
 
+    @_locked
     def insert(self, digest: bytes) -> bool:
         """Insert; returns False if already present."""
         if digest in self._known:
@@ -139,9 +175,9 @@ class CuckooIndex:
         self._known.add(digest)
         fp0, fp1, b1, b2 = self._fp_bucket(digest)
         self._insert_fp(fp0, fp1, b1, b2)
-        self._dirty = True
         return True
 
+    @_locked
     def discard(self, digest: bytes) -> bool:
         """Remove a digest (GC sweep coherence: a swept chunk must leave
         the filter).  Returns False if it was never present.  The table
@@ -159,14 +195,14 @@ class CuckooIndex:
             for s in range(SLOTS):
                 if row[s, 0] == fp0 and row[s, 1] == fp1:
                     row[s] = (0, 0)
-                    self._dirty = True
+                    self._touch(b)
                     return True
         # fingerprint not in the mirror (dropped during an eviction
         # overflow before a growth rebuild): the authoritative set is
         # already updated, so membership answers stay correct
-        self._dirty = True
         return True
 
+    @_locked
     def discard_many(self, digests) -> int:
         n = 0
         for d in digests:
@@ -174,12 +210,26 @@ class CuckooIndex:
                 n += 1
         return n
 
+    @_locked
     def probe_host(self, digests: np.ndarray) -> np.ndarray:
         """Batched maybe-present over the host mirror (numpy, no device):
         digests uint8[N,32] → bool[N].  The CPU-only probe path of
         ``probe``; confirm hits via ``contains_exact`` before skipping
         an upload."""
         return lookup_host(self._table, digests)
+
+    def _touch(self, rows) -> None:
+        """Record buckets written to the mirror (an int or an int array)
+        for the next ``device_table``.  Nothing is recorded while the
+        device copy is absent or due whole, and past a quarter of the
+        table the next upload is a whole one."""
+        if self._device_table is None or self._dirty:
+            return
+        self._touched.append(rows)
+        self._n_touched += np.size(rows)
+        if 4 * self._n_touched >= self.n_buckets:
+            self._dirty = True
+            self._touched, self._n_touched = [], 0
 
     def _insert_fp(self, fp0: int, fp1: int, b1: int, b2: int,
                    *, grow: bool = True) -> bool:
@@ -188,6 +238,7 @@ class CuckooIndex:
             for s in range(SLOTS):
                 if row[s, 0] == 0 and row[s, 1] == 0:
                     row[s] = (fp0, fp1)
+                    self._touch(b)
                     return True
         # eviction chain
         b = b1
@@ -196,6 +247,7 @@ class CuckooIndex:
             s = int(self._rng.integers(0, SLOTS))
             victim = self._table[b, s].copy()
             self._table[b, s] = cur
+            self._touch(b)
             cur = victim
             vfp0 = int(cur[0])
             mask = self.n_buckets - 1
@@ -204,6 +256,7 @@ class CuckooIndex:
             for s2 in range(SLOTS):
                 if row[s2, 0] == 0 and row[s2, 1] == 0:
                     row[s2] = cur
+                    self._touch(b)
                     return True
         if not grow:
             # mid-rebuild overflow: the rebuild loop doubles and retries
@@ -221,12 +274,14 @@ class CuckooIndex:
         self._rebuild_bulk()
 
     # -- filter-only surface (spillable exact tier) ------------------------
+    @_locked
     def attach_digest_source(self, source) -> None:
         """Enter filter-only mode: ``source()`` must yield every LIVE
         digest (pxar/digestlog.py's merged view) — growth rebuilds
         stream it instead of an in-RAM ``_known`` set."""
         self._digest_source = source
 
+    @_locked
     def maybe_contains(self, digest: bytes) -> bool:
         """Scalar filter lookup (maybe-present; the caller confirms a
         positive against the exact tier before any dedup skip)."""
@@ -238,6 +293,7 @@ class CuckooIndex:
                     return True
         return False
 
+    @_locked
     def insert_fp(self, digest: bytes) -> None:
         """Insert ONE fingerprint (filter-only mode; caller already
         recorded the digest in the exact tier, so a growth rebuild
@@ -248,8 +304,8 @@ class CuckooIndex:
         else:
             fp0, fp1, b1, b2 = self._fp_bucket(digest)
             self._insert_fp(fp0, fp1, b1, b2)
-        self._dirty = True
 
+    @_locked
     def insert_fp_many(self, digests: "list[bytes]") -> None:
         """Bulk fingerprint insert (filter-only mode): group-wise free
         slot placement, eviction chains only for the overflow tail —
@@ -272,8 +328,8 @@ class CuckooIndex:
                 self._insert_fp(fp0, fp1, b1, b2)
                 if self.n_buckets != nb:
                     break              # the growth rebuild placed the rest
-        self._dirty = True
 
+    @_locked
     def discard_fp(self, digest: bytes) -> None:
         """Zero the fingerprint slot (filter-only mode).  A twin digest
         sharing the fp+bucket pair degrades to a safe false negative,
@@ -285,10 +341,10 @@ class CuckooIndex:
             for s in range(SLOTS):
                 if row[s, 0] == fp0 and row[s, 1] == fp1:
                     row[s] = (0, 0)
-                    self._dirty = True
+                    self._touch(b)
                     return
-        self._dirty = True
 
+    @_locked
     def insert_many(self, digests: list[bytes]) -> int:
         """Bulk insert, vectorized: one numpy pass computes every
         fingerprint/bucket pair, free slots are allocated group-wise on
@@ -323,7 +379,6 @@ class CuckooIndex:
                     # _insert_fp grew the table, and the rebuild placed
                     # every known digest — the rest of the tail included
                     break
-        self._dirty = True
         return len(uniq)
 
     def _fp_buckets_vec(self, arr: np.ndarray):
@@ -364,6 +419,7 @@ class CuckooIndex:
             put = sel_i[fits]
             self._table[bs[fits], slot[fits], 0] = fp0[put]
             self._table[bs[fits], slot[fits], 1] = fp1[put]
+            self._touch(bs[fits])
             remaining[put] = False
         return np.flatnonzero(remaining)
 
@@ -378,6 +434,7 @@ class CuckooIndex:
         while True:
             self._table = np.zeros((self.n_buckets, SLOTS, 2),
                                    dtype=np.uint32)
+            self._dirty = True
             if self._place_all():
                 return
             self.n_buckets *= 2
@@ -408,15 +465,37 @@ class CuckooIndex:
         return True
 
     # -- device probe -----------------------------------------------------
+    @_locked
     def device_table(self) -> torch.Tensor:
         """int64[NB, SLOTS]: the host mirror on the index's device, one
-        int64 per slot (uploaded again after inserts)."""
-        if self._dirty or self._device_table is None:
-            t64 = self._table.view(np.int64).reshape(self.n_buckets, SLOTS)
+        int64 per slot.  Uploaded whole the first time and after a
+        rebuild; otherwise only the buckets written since the last call
+        are copied (module docstring)."""
+        t64 = self._table.view(np.int64).reshape(self.n_buckets, SLOTS)
+        dt = self._device_table
+        rows = None
+        if not (self._dirty or dt is None or dt.shape[0] != self.n_buckets):
+            if not self._touched:
+                return dt
+            rows = np.unique(np.concatenate(
+                [np.atleast_1d(r).astype(np.int64) for r in self._touched]))
+        self._touched, self._n_touched = [], 0
+        self._dirty = False
+        if rows is None:
+            # pageable host memory: the copy is done when .to() returns,
+            # so later inserts may write the mirror at once
             self._device_table = torch.from_numpy(t64.copy()).to(self.device)
-            self._dirty = False
+            stats["table_uploads"] += 1
+            stats["upload_bytes"] += t64.nbytes
+        else:
+            vals = torch.from_numpy(t64[rows])           # a gathered copy
+            idx = torch.from_numpy(rows.astype(np.int64))
+            dt.index_copy_(0, idx.to(self.device), vals.to(self.device))
+            stats["row_uploads"] += 1
+            stats["upload_bytes"] += vals.numel() * 8 + idx.numel() * 8
         return self._device_table
 
+    @_locked
     def probe(self, digests: np.ndarray | torch.Tensor) -> torch.Tensor:
         """digests uint8[N,32] → bool[N] on the index's device
         (maybe-present; exact-confirm via contains_exact on hits if false
@@ -426,6 +505,7 @@ class CuckooIndex:
         d = digests.to(self.device)
         return _lookup(self.device_table(), d)
 
+    @_locked
     def probe_confirmed(self, digests: list[bytes]) -> list[bool]:
         arr = np.frombuffer(b"".join(digests), dtype=np.uint8).reshape(-1, 32)
         maybe = self.probe(arr).cpu().numpy()

@@ -86,3 +86,57 @@ def test_index_from_reference_checks_shape():
 def test_buckets_for_bytes_matches():
     for budget in (0, 1 << 15, 1 << 20, 32 << 20, (32 << 20) - 1):
         assert port.buckets_for_bytes(budget) == ref.buckets_for_bytes(budget)
+
+
+def test_concurrent_insert_and_probe_stay_exact():
+    """Writer and prober threads share one index, as the sidecar's gRPC
+    handlers do: every digest whose insert returned before a probe began
+    answers present, no digest outside the inserted pool does, and the
+    device table equals the host mirror at the end."""
+    import threading
+
+    idx = port.CuckooIndex(n_buckets=1 << 14, seed=3, device="cpu")
+    writers, batches, width = 4, 60, 48
+    pools = [_digests(batches * width, 100 + w) for w in range(writers)]
+    absent = _digests(256, 99)
+    done: set[bytes] = set()
+    done_lock = threading.Lock()
+    stop = threading.Event()
+    errors: list[str] = []
+
+    def write(pool):
+        for i in range(0, len(pool), width):
+            batch = pool[i:i + width]
+            idx.insert_many(batch)
+            with done_lock:
+                done.update(batch)
+
+    def probe(seed):
+        rng = np.random.default_rng(seed)
+        while not stop.is_set() and not errors:
+            with done_lock:
+                settled = list(done)
+            if not settled:
+                stop.wait(0.001)
+                continue
+            pick = [settled[int(i)] for i in
+                    rng.integers(0, len(settled), 64)] + absent[:16]
+            got = idx.probe_confirmed(pick)
+            if not all(got[:64]) or any(got[64:]):
+                errors.append("answer differs from the set")
+
+    probers = [threading.Thread(target=probe, args=(s,)) for s in range(3)]
+    threads = [threading.Thread(target=write, args=(p,)) for p in pools]
+    for t in probers + threads:
+        t.start()
+    for t in threads:
+        t.join()
+    stop.set()
+    for t in probers:
+        t.join()
+    assert not errors
+    everything = [d for p in pools for d in p]
+    assert idx.probe_confirmed(everything) == [True] * len(everything)
+    assert not any(idx.probe_confirmed(absent))
+    assert np.array_equal(idx.device_table().numpy(),
+                          idx._table.view(np.int64).reshape(-1, port.SLOTS))

@@ -222,3 +222,44 @@ def test_sidecar_service_on_card_matches_cpu(cuda):
         out.append((r, svc.probe_index({"digests": digs}),
                     svc.snapshot_signature({"digests": digs})))
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("spill", [False, True], ids=["ram", "spill"])
+def test_dedup_index_probes_with_k3_on_card(cuda, tmp_path, spill):
+    """DedupIndex(device="cuda") answers with K3 on the card, equal to a
+    Python set, after interleaved inserts, discards and one growth; the
+    device table equals the host mirror after its row copies."""
+    from pbs_plus_tpu_torch.pxar import DedupIndex
+    rng = np.random.default_rng(6)
+    kw = {"spill_dir": str(tmp_path), "resident_mb": 1} if spill else {}
+    idx = DedupIndex(budget_mb=1, seed=2, device=cuda, **kw)
+    nb = idx.n_buckets
+    truth: set[bytes] = set()
+    before = cuckoo.stats["device_probes"]
+    for step in range(16):
+        batch = [bytes(r) for r in rng.integers(0, 256, (8_000, 32), np.uint8)]
+        probe = batch[:500] + list(truth)[:500]
+        assert idx.probe_batch(probe) == [d in truth for d in probe]
+        idx.insert_many(batch[250:])
+        truth.update(batch[250:])
+        gone = list(truth)[:40]
+        idx.discard_many_acked(gone)
+        truth.difference_update(gone)
+        t = idx._cuckoo.device_table()
+        torch.cuda.synchronize()
+        assert np.array_equal(t.cpu().numpy(), idx._cuckoo._table.view(
+            np.int64).reshape(idx.n_buckets, cuckoo.SLOTS))
+    assert idx.n_buckets == 2 * nb
+    assert cuckoo.stats["device_probes"] >= before + 16
+    sample = list(truth)[::50] + [bytes(32)] * 3
+    assert idx.probe_batch(sample) == [d in truth for d in sample]
+
+
+def test_similarity_index_sketches_on_card(cuda):
+    from pbs_plus_tpu_torch.ops import similarity
+    from pbs_plus_tpu_torch.pxar import SimilarityIndex
+    chunks = [_bytes(n, n).tobytes() for n in (3, 4, 100, 4096, 70_001)]
+    before = similarity.stats["content_sketch"]
+    got = SimilarityIndex(device=cuda).sketch_batch(chunks)
+    assert similarity.stats["content_sketch"] == before + 1
+    assert np.array_equal(got, similarity.content_sketch_host(chunks))

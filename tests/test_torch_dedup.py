@@ -4,6 +4,7 @@ backend, the jax-free import gate, and the refusal to run on an absent
 card.  Tolerance is exact.  ``test_torch_pipeline.py`` holds the
 whole-stream ``DedupPipeline``."""
 
+import argparse
 import io
 import os
 import subprocess
@@ -25,6 +26,8 @@ from pbs_plus_tpu_torch.models import (CudaChunker, DedupConfig,
 from pbs_plus_tpu_torch.models import SimilarityModel, VerifyPipeline
 from pbs_plus_tpu_torch.ops import (fingerprint, ingest, rolling_hash, sha256,
                                     similarity)
+from pbs_plus_tpu_torch.parallel import dist_index
+from pbs_plus_tpu_torch.pxar import DedupIndex, SimilarityIndex
 from pbs_plus_tpu_torch.sidecar import DedupService, serve_sidecar
 from pbs_plus_tpu_torch.utils.device import CudaUnavailableError
 
@@ -169,6 +172,33 @@ assert all(svc.probe_index({"digests": r["digests"]})["present"])
 assert len(svc.snapshot_signature({"digests": r["digests"]})["signature"]) == 128
 assert svc.get_stats({})["use_tpu"] is False
 
+# the index tier: DedupIndex (spill mode), SimilarityIndex and a shard node
+import tempfile
+from pbs_plus_tpu_torch.parallel import (DistIndexClient, IndexShardServer,
+                                         ShardMap)
+from pbs_plus_tpu_torch.pxar import DedupIndex, SimilarityIndex
+with tempfile.TemporaryDirectory() as tmp:
+    idx = DedupIndex(budget_mb=1, spill_dir=tmp, resident_mb=1, device="cpu")
+    digs = [hashlib.sha256(b"%d" % i).digest() for i in range(3000)]
+    assert idx.insert_many(digs[:2000]) == 2000
+    assert idx.probe_batch(digs[1990:2010]) == [True] * 10 + [False] * 10
+    idx.save_snapshot(tmp + "/snap")
+    sim = SimilarityIndex(device="cpu")
+    sim.presketch(digs[:2], [data, data[:-9]], None)
+    sim.add(digs[0], sim.take_sketch(digs[0], data), 0)
+    assert sim.take_candidate(digs[1], sim.take_sketch(digs[1], data[:-9]))
+    node_idx = DedupIndex(budget_mb=1, device="cpu")
+    node_idx.mark_booted()
+    node = IndexShardServer("s0", node_idx)
+    node.start()
+    try:
+        cli = DistIndexClient(ShardMap([("s0", node.endpoint)]))
+        assert cli.insert_many(digs) == 3000
+        assert cli.probe_batch(digs[:5]) == [True] * 5
+        cli.close()
+    finally:
+        node.stop()
+
 bad = [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
 assert not bad, bad
 print(len(mods))
@@ -179,10 +209,10 @@ def test_port_imports_without_jax_or_reference():
     r = subprocess.run([sys.executable, "-c", _GATE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 27
+    assert int(r.stdout.split()[-1]) >= 37
 
 
-def test_cuda_request_raises_without_card():
+def test_cuda_request_raises_without_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(CudaUnavailableError):
@@ -207,6 +237,13 @@ def test_cuda_request_raises_without_card():
             lambda: fingerprint.fold_fingerprint(b"abcd", [0], [4], 1),
             lambda: ingest.scan_rows(ingest.pack_rows([[b"x" * 100]], [b""],
                                                       [0], [0]), P),
-            lambda: ingest.digest_chunks([b"abc"])):
+            lambda: ingest.digest_chunks([b"abc"]),
+            lambda: DedupIndex(),
+            lambda: DedupIndex(spill_dir=str(tmp_path / "spill")),
+            lambda: SimilarityIndex(),
+            lambda: dist_index.serve_shard(argparse.Namespace(
+                shard_id="s0", host="127.0.0.1", port=0, token="",
+                spill_dir="", budget_mb=1, resident_mb=1, snapshot="",
+                device="cuda"))):
         with pytest.raises(CudaUnavailableError):
             call()
