@@ -41,21 +41,32 @@ runs one phase per line:
 10. fingerprint fold fingerprints of the step's chunks
 11. ingest    the 8 streams' next 32 MiB windows packed into one ragged
               buffer, scanned by one K1 launch, the cut chunks digested
-12. index     the store's DedupIndex on the card at a server's defaults
+12. parallel  the multi-device layer over meshes that repeat the card: the
+              sharded step over 4 (data) x 2 (index) on the 8 streams
+              (K1 counts, 4 MiB head digests, the probe of an index
+              sharded 2 ways, simhash, the total) against one device,
+              hashlib and the host mirror, with its layers timed; the 8
+              streams as one 2 GiB stream over 8 sequence-parallel shards
+              (masks and cuts against one K1 mask, each shard against the
+              plain version); the data-axis fan-in of the ingest windows'
+              K1 batch and the step's K2 chunks over 4 devices against
+              one; 256 Ki index-sharded probes; the same over the real
+              cards where two or more are visible
+13. index     the store's DedupIndex on the card at a server's defaults
               (64 MiB table, 256 MiB memtable, spill segments): 4 Mi
               digests preloaded, 1 Mi probed in batches of 1,024 (each
               followed by the insert of its novel half) and 16 Ki in
               batches of 64, every answer held against a Python set; the
               device table's row copies against whole uploads; snapshot,
               reload and boot seconds; discards; one filter growth
-13. dist_index two ``python -m pbs_plus_tpu_torch index-shard`` nodes on the
+14. dist_index two ``python -m pbs_plus_tpu_torch index-shard`` nodes on the
               card behind the port's DistIndexClient over loopback HTTP:
               1 Mi inserts, 256 Ki probes in batches of 1,024, a rebalance
               to a third node, snapshots on exit
-14. similarity_index SimilarityIndex on the card: presketch of the step's
+15. similarity_index SimilarityIndex on the card: presketch of the step's
               chunks; sketches and candidates of a sample held against
               the same index on the CPU
-15. timings   each kernel's and torch-op program's time, bound, plain and
+16. timings   each kernel's and torch-op program's time, bound, plain and
               library times
 
 then a ``{"torch_ops": [...]}`` and a ``{"kernels": [...]}`` line, the
@@ -122,6 +133,17 @@ DIST_INSERTS = 1 << 20        # through two shard nodes
 DIST_PROBES = 1 << 18         # in batches of 1,024, half present
 SIMI_SAMPLE = 32              # SimilarityIndex sketches held against the CPU
 SIMI_VARIANTS = 16            # near-duplicates of the sample's first chunks
+# the multi-device layer (phase 12) on the main path's streams, over meshes
+# that repeat the card: the step over PAR_DATA x PAR_INDEX with heads of
+# STEP_CHUNK bytes, the 2 GiB concatenation over SEQ_SHARDS, the fan-in
+# over FAN_IN_DEVICES, PAR_PROBES sharded probes in batches
+PAR_DATA, PAR_INDEX = 4, 2
+STEP_CHUNK = 4 << 20
+SEQ_SHARDS = 8
+FAN_IN_DEVICES = 4
+PAR_PROBES = 1 << 18
+PAR_PROBE_BATCH = 1024
+SIM_FLIP_LIMIT = 1e-4     # |float64 score| of a simhash sign that may flip
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SCRATCH = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -198,6 +220,30 @@ def cuda_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def sync_all() -> None:
+    """Wait for every visible card."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def timed(fn):
+    """``fn()``'s result and its seconds on the host clock, every card
+    synchronised before and after."""
+    sync_all()
+    t = time.perf_counter()
+    r = fn()
+    sync_all()
+    return r, time.perf_counter() - t
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median milliseconds of ``fn()`` on the host clock with every card
+    synchronised around each run, after one warm-up: the time of work
+    spread over several cards, which one card's events do not see."""
+    fn()
+    return float(np.median([timed(fn)[1] * 1e3 for _ in range(reps)]))
 
 
 def device_ms(fn):
@@ -315,7 +361,7 @@ def pct(ms: list[float]) -> dict:
 
 
 def index_phase(dev, seed: int) -> dict:
-    """The store's DedupIndex at a server's defaults (phase 12)."""
+    """The store's DedupIndex at a server's defaults (phase 13)."""
     from pbs_plus_tpu_torch.ops import cuckoo
     from pbs_plus_tpu_torch.pxar import chunkindex, digestlog
     from pbs_plus_tpu_torch.utils import trace
@@ -523,7 +569,7 @@ def index_phase(dev, seed: int) -> dict:
 
 
 def dist_index_phase(dev, seed: int) -> dict:
-    """Two shard nodes on the card behind DistIndexClient (phase 13)."""
+    """Two shard nodes on the card behind DistIndexClient (phase 14)."""
     from pbs_plus_tpu_torch.parallel import DistIndexClient, ShardMap, dist_index
 
     root = os.path.join(SCRATCH, "dist")
@@ -639,7 +685,7 @@ def dist_index_phase(dev, seed: int) -> dict:
 
 
 def similarity_index_phase(dev, chunks: list, digests: list, seed: int) -> dict:
-    """SimilarityIndex on the card (phase 14)."""
+    """SimilarityIndex on the card (phase 15)."""
     from pbs_plus_tpu_torch.ops import similarity
     from pbs_plus_tpu_torch.pxar import SimilarityIndex
 
@@ -686,6 +732,297 @@ def similarity_index_phase(dev, chunks: list, digests: list, seed: int) -> dict:
             "launches": {"content_sketch": launches},
             "sample": SIMI_SAMPLE, "variants": SIMI_VARIANTS,
             "variants_found_base": found}
+
+
+def parallel_phase(dev, P, streams: dict, dstream, step_bounds: list,
+                   step_digests: list, index, pre: np.ndarray, w_off: int,
+                   win_plain: list, seed: int) -> tuple[dict, dict]:
+    """The multi-device layer at full width (phase 12): the sharded step,
+    sequence-parallel chunking, the data-axis fan-in of K1/K2 and the
+    index-sharded probe, over meshes that repeat the card, and over the
+    real cards where more than one is visible.  ``win_plain`` holds the
+    plain K1's hits in each stream's ingest window (phase 11), which the
+    fan-in's K1 is held to.  Returns the phase line and the numbers the
+    torch_ops and kernels lines take."""
+    from pbs_plus_tpu_torch.chunker.spec import WINDOW, select_cuts
+    from pbs_plus_tpu_torch.convert import sharded_index_from_reference
+    from pbs_plus_tpu_torch.ops import cuckoo, rolling_hash, sha256, similarity
+    from pbs_plus_tpu_torch.ops.rolling_hash import _nonzero_rows
+    from pbs_plus_tpu_torch.parallel import (dist_index, make_mesh,
+                                             make_seq_mesh,
+                                             multichip_dedup_step,
+                                             sp_candidate_mask,
+                                             sp_chunk_stream)
+    from pbs_plus_tpu_torch.parallel import mesh as mesh_mod
+    from pbs_plus_tpu_torch.parallel.collectives import (halo_from_left,
+                                                         scatter_rows)
+    from pbs_plus_tpu_torch.parallel.sharded_step import (head_digests,
+                                                          mask_counts)
+
+    t_phase = time.perf_counter()
+    dev = dstream.device        # the card with its index, as meshes name it
+    names = sorted(streams)
+    n_total = dstream.numel()
+    rows = dstream.view(N_STREAMS, STREAM_BYTES)
+    tables = rolling_hash.device_tables(P, dev)
+    nb = index.n_buckets
+    proj = similarity.simhash_projection(64)
+
+    # the single-device answers, made before any count is zeroed: K1's row
+    # counts of the 8 streams, the heads' digests by hashlib, and K1's mask
+    # of the 8 streams concatenated into one 2 GiB stream
+    ref_cand = rolling_hash.candidate_mask(rows, tables, P.mask, P.magic
+                                           ).sum(dim=1).cpu().numpy()
+    heads = [hashlib.sha256(streams[n][:STEP_CHUNK]).digest() for n in names]
+    heads_np = np.frombuffer(b"".join(heads), np.uint8).reshape(-1, 32)
+    one_mask = rolling_hash.candidate_mask(dstream, tables, P.mask, P.magic)
+    nz = _nonzero_rows(one_mask.view(N_STREAMS, -1), N_STREAMS)
+    one_pos = nz[:, 0] * STREAM_BYTES + nz[:, 1]
+    one_cuts = select_cuts(one_pos + 1, n_total, P)
+    sk_host, sk_host_s = timed(lambda: similarity.simhash_sketch_host(heads_np))
+    # 256 Ki probes in batches of 1,024, half of each from the preload
+    rng = np.random.default_rng(seed + 23)
+    n_batches, half = PAR_PROBES // PAR_PROBE_BATCH, PAR_PROBE_BATCH // 2
+    probes = np.concatenate([
+        pre[rng.integers(0, len(pre), n_batches * half)].reshape(
+            n_batches, half, 32),
+        np.frombuffer(rng.bytes(32 * n_batches * half), np.uint8).reshape(
+            n_batches, half, 32)], axis=1)
+
+    def run(step_devs, seq_devs, fan_devs) -> tuple[dict, dict]:
+        timer = cuda_ms if len(set(step_devs + seq_devs + fan_devs)) == 1 \
+            else wall_ms
+        out, nums = {}, {}
+        # -- the sharded step over (data x index), the index sharded 2 ways
+        mesh = make_mesh(devices=step_devs, index_parallel=PAR_INDEX)
+        nd, ni = mesh.shape["data"], mesh.shape["index"]
+        t0 = time.perf_counter()
+        sidx = sharded_index_from_reference(index._table, index._known, mesh,
+                                            n_buckets=nb, seed=seed)
+        for d in heads[:N_STREAMS // 2]:
+            sidx.insert(d)
+        want_hits = cuckoo.lookup_host(sidx.inner._table, heads_np)
+        check(want_hits.tolist() == [True] * (N_STREAMS // 2)
+              + [False] * (N_STREAMS // 2),
+              "the index holds exactly the heads of streams 0-3")
+        heads_dev = [mesh.devices[i, 0] for i in range(nd)]
+        shards = scatter_rows(rows, heads_dev)
+        idx_tab = sidx.device_table()
+        sync_all()
+        index_s = time.perf_counter() - t0
+        step = multichip_dedup_step(mesh, chunk_len=STEP_CHUNK, n_buckets=nb)
+
+        def run_step():
+            return step(shards, tables, idx_tab, proj, P.mask, P.magic)
+
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        rolling_hash.KERNEL.launches = 0
+        sha256.KERNEL.launches = 0
+        dist_index.stats["probe_local"] = 0
+        similarity.stats["simhash"] = 0
+        (cand, hits, sk, total), step_s = timed(run_step)
+        launches = {"candidate_mask": rolling_hash.KERNEL.launches,
+                    "sha256_chunks": sha256.KERNEL.launches,
+                    "probe_local": dist_index.stats["probe_local"],
+                    "simhash": similarity.stats["simhash"]}
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        check(launches == {"candidate_mask": nd, "sha256_chunks": nd,
+                           "probe_local": nd * ni, "simhash": nd},
+              f"sharded step launches: {launches}")
+        cand = cand.cpu().numpy()
+        check(np.array_equal(cand, ref_cand),
+              "sharded step cand_count != one K1 mask's row counts")
+        check(int(total) == int(ref_cand.sum()),
+              "sharded step total_candidates != the sum")
+        check(np.array_equal(hits.cpu().numpy(), want_hits),
+              "sharded step hits != lookup_host on the unsharded mirror")
+        sk = sk.cpu().numpy().astype(np.uint32)
+        diff = np.unpackbits((sk ^ sk_host).astype(">u4").view(np.uint8),
+                             axis=-1).reshape(N_STREAMS, -1).astype(bool)
+        scores = (np.unpackbits(heads_np, axis=-1).astype(np.float64) * 2 - 1
+                  ) @ proj.astype(np.float64)
+        check((np.abs(scores[diff]) < SIM_FLIP_LIMIT).all(),
+              "sharded step sketches != simhash_sketch_host beyond the flip rule")
+        # the step's layers alone, on the same inputs: the functions the
+        # step calls, one after another
+        tables_on = {d: tables.to(d) for d in set(step_devs)}
+        proj_on = {d: torch.from_numpy(proj.astype(np.float64)).to(d)
+                   for d in set(step_devs)}
+
+        def k1_layer():
+            return [mask_counts(s, tables_on[s.device], P.mask, P.magic)
+                    for s in shards]
+
+        def k2_layer():
+            return [head_digests(s, STEP_CHUNK) for s in shards]
+
+        digs = k2_layer()
+        check(b"".join(d.cpu().numpy().tobytes() for d in digs)
+              == b"".join(heads), "sharded step head digests != hashlib")
+
+        def probe_layer():
+            return [dist_index.probe_row(mesh, idx_tab, d, nb, row={"data": i})
+                    for i, d in enumerate(digs)]
+
+        def simhash_layer():
+            return [similarity._simhash(d, proj_on[d.device], 64) for d in digs]
+
+        layers = {"k1_ms": timer(k1_layer, 3), "k2_ms": timer(k2_layer, 2),
+                  "probe_ms": timer(probe_layer, 10),
+                  "simhash_ms": timer(simhash_layer, 10)}
+        step_ms = timer(run_step, 2)
+        # the plain K1 of the step's rows, one row at a time
+        t0 = time.perf_counter()
+        for r in range(N_STREAMS):
+            got = rolling_hash.candidate_mask_plain(
+                rows[r:r + 1], tables, P.mask, P.magic).sum()
+            check(int(got) == int(ref_cand[r]),
+                  f"plain K1 count of stream {r} != the kernel's")
+        sync_all()
+        k1_plain_ms = (time.perf_counter() - t0) * 1e3
+        out["step"] = {
+            "mesh": mesh.shape, "devices": sorted({str(d) for d in step_devs}),
+            "chunk_len": STEP_CHUNK, "hits": int(want_hits.sum()),
+            "total_candidates": int(total), "sketch_flips": int(diff.sum()),
+            "launches": launches, "seconds": step_s, "ms": step_ms,
+            "layers": layers, "k1_plain_ms": k1_plain_ms,
+            "peak_extra_bytes": peak, "index_setup_s": index_s}
+        # data shards whose launches queue one after another on one card
+        per_card = max(heads_dev.count(d) for d in heads_dev)
+        nums["step"] = {"ms": step_ms, "launches": launches,
+                        "layers": layers, "k1_plain_ms": k1_plain_ms,
+                        "shards_per_card": per_card}
+
+        # -- the index-sharded probe: 256 Ki probes in batches of 1,024
+        want = cuckoo.lookup_host(sidx.inner._table, probes.reshape(-1, 32))
+        dist_index.stats["probe_local"] = 0
+        got, probe_s = timed(lambda: np.concatenate(
+            [sidx.probe(b).cpu().numpy() for b in probes]))
+        pl = dist_index.stats["probe_local"]
+        check(pl == n_batches * nd * ni, f"sharded probe launches: {pl}")
+        check(np.array_equal(got, want), "sharded probe != lookup_host")
+        check(got.reshape(n_batches, -1)[:, :half].all(),
+              "every preloaded digest is found by the sharded probe")
+        batch_dev = torch.from_numpy(probes[0].copy()).to(dev)
+        pl_ms = timer(lambda: dist_index.probe_row(mesh, idx_tab, batch_dev, nb,
+                                                   row={"data": 0}), 10)
+        out["sharded_index"] = {
+            "preloaded": len(index), "probes": int(got.size),
+            "batch": PAR_PROBE_BATCH, "present_found": int(
+                got.reshape(n_batches, -1)[:, :half].sum()),
+            "absent_maybe": int(got.reshape(n_batches, -1)[:, half:].sum()),
+            "seconds": probe_s, "probes_per_s": got.size / probe_s,
+            "launches": pl, "probe_local_ms_1024": pl_ms,
+            "table": "re-uploaded whole after a change"}
+        nums["probe_local"] = {"ms": pl_ms, "launches": pl, "shards": ni}
+        del sidx, idx_tab, shards
+
+        # -- sequence-parallel: the 8 streams as one 2 GiB stream
+        seq_mesh = make_seq_mesh(devices=seq_devs)
+        rolling_hash.KERNEL.launches = 0
+        masks, sp_s = timed(lambda: sp_candidate_mask(seq_mesh, dstream, P))
+        sp_launches = rolling_hash.KERNEL.launches
+        check(sp_launches == len(seq_devs),
+              f"sequence-parallel K1 launches: {sp_launches}")
+        L = n_total // len(seq_devs)
+        sp_pos = np.concatenate([_nonzero_rows(m[None], 1)[:, 1] + i * L
+                                 for i, m in enumerate(masks)])
+        check(np.array_equal(sp_pos, one_pos),
+              "sequence-parallel mask positions != one K1 mask's")
+        check(all(torch.equal(m, one_mask[i * L:(i + 1) * L].to(m.device))
+                  for i, m in enumerate(masks)),
+              "sequence-parallel masks != one K1 mask")
+        cuts = sp_chunk_stream(seq_mesh, dstream, P)
+        check(cuts == one_cuts, "sequence-parallel cuts != select_cuts")
+        # the plain version of each shard's body, halo and all
+        shards = [dstream[i * L:(i + 1) * L].to(d)
+                  for i, d in enumerate(seq_devs)]
+        halos = halo_from_left(shards, WINDOW - 1)
+        sync_all()
+        t0 = time.perf_counter()
+        for i, (sh, ha) in enumerate(zip(shards, halos)):
+            plain = rolling_hash.candidate_mask_plain(
+                sh[None], tables.to(sh.device), P.mask, P.magic, ha[None])[0]
+            if i == 0:
+                plain[:WINDOW - 1] = False
+            check(torch.equal(plain, masks[i]),
+                  f"sequence-parallel shard {i}: K1 != plain")
+        sync_all()
+        sp_plain_ms = (time.perf_counter() - t0) * 1e3
+        del masks, shards, halos
+        sp_ms = timer(lambda: sp_candidate_mask(seq_mesh, dstream, P), 5)
+        one_ms = cuda_ms(lambda: rolling_hash.candidate_mask(
+            dstream, tables, P.mask, P.magic), 5)
+        out["sequence_parallel"] = {
+            "shards": len(seq_devs), "bytes": n_total,
+            "candidates": int(len(one_pos)), "cuts": len(cuts),
+            "launches": sp_launches, "seconds": sp_s, "ms": sp_ms,
+            "one_device_ms": one_ms, "plain_ms": sp_plain_ms}
+        nums["sp"] = {"ms": sp_ms, "one_ms": one_ms, "plain_ms": sp_plain_ms,
+                      "launches": sp_launches}
+
+        # -- the data-axis fan-in of the batched K1 and K2 dispatches
+        bufs = [streams[n][w_off:w_off + INGEST_WINDOW] for n in names]
+        hists = [streams[n][w_off - WINDOW + 1:w_off] for n in names]
+        prev = mesh_mod.set_data_mesh(None)
+        try:
+            local, local_s = timed(lambda: rolling_hash.batched_candidate_hits(
+                bufs, hists, tables, P))
+            local_digs, local_sha_s = timed(
+                lambda: sha256.sha256_stream_chunks(dstream, step_bounds))
+            mesh_mod.set_data_mesh(make_seq_mesh(devices=fan_devs,
+                                                 axis_name="data"))
+            d1 = rolling_hash.stats["mesh_dispatches"]
+            d2 = sha256.stats["mesh_dispatches"]
+            rolling_hash.KERNEL.launches = 0
+            fan, fan_s = timed(lambda: rolling_hash.batched_candidate_hits(
+                bufs, hists, tables, P))
+            k1_fan = rolling_hash.KERNEL.launches
+            sha256.KERNEL.launches = 0
+            fan_digs, fan_sha_s = timed(
+                lambda: sha256.sha256_stream_chunks(dstream, step_bounds))
+            k2_fan = sha256.KERNEL.launches
+            rose = (rolling_hash.stats["mesh_dispatches"] - d1,
+                    sha256.stats["mesh_dispatches"] - d2)
+        finally:
+            mesh_mod.set_data_mesh(prev)
+        check(k1_fan == len(fan_devs) and k2_fan == len(fan_devs),
+              f"fan-in launches: K1 {k1_fan}, K2 {k2_fan}")
+        check(rose == (1, 1), f"fan-in mesh_dispatches rose by {rose}")
+        check(len(local) == len(win_plain) and all(
+            np.array_equal(a, b) for a, b in zip(local, win_plain)),
+            "one-device batched candidate hits != plain K1")
+        check(len(fan) == len(win_plain) and all(
+            np.array_equal(a, b) for a, b in zip(fan, win_plain)),
+            "fan-in candidate hits != plain K1")
+        check(fan_digs == local_digs == step_digests,
+              "fan-in digests != one device and hashlib")
+        out["fan_in"] = {
+            "devices": len(fan_devs), "k1_rows": [len(bufs), INGEST_WINDOW],
+            "k2_chunks": len(step_bounds), "launches": {
+                "candidate_mask": k1_fan, "sha256_chunks": k2_fan},
+            "mesh_dispatches": {"candidate_mask": rose[0],
+                                "sha256_chunks": rose[1]},
+            "k1_s": fan_s, "k1_one_device_s": local_s,
+            "k2_s": fan_sha_s, "k2_one_device_s": local_sha_s}
+        nums["fan_in"] = {"k1": k1_fan, "k2": k2_fan}
+        return out, nums
+
+    n_par = PAR_DATA * PAR_INDEX
+    line, nums = run([dev] * n_par, [dev] * SEQ_SHARDS, [dev] * FAN_IN_DEVICES)
+    line = {"phase": "parallel", "mesh_devices": f"{dev} repeated", **line,
+            "simhash_host_ms": sk_host_s * 1e3}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        n = min(8, 1 << (n_cards.bit_length() - 1))
+        real = [torch.device("cuda", i) for i in range(n)]
+        line["multi_card"], _ = run(real, real, real)
+    else:
+        line["multi_card"] = f"not run: {n_cards} CUDA device"
+    line["seconds"] = time.perf_counter() - t_phase
+    nums["simhash_host_ms"] = sk_host_s * 1e3
+    return line, nums
 
 
 def main() -> int:
@@ -1040,13 +1377,6 @@ def main() -> int:
 
     # where one step's time goes: each layer alone, host clock around
     # synchronised calls, then the device's busy share under the profiler
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        return r, time.perf_counter() - t
-
     def upload():
         buf = torch.empty(N_STREAMS * STREAM_BYTES, dtype=torch.uint8, device=dev)
         for k, n in enumerate(names):
@@ -1348,14 +1678,16 @@ def main() -> int:
     t0 = time.perf_counter()
     ends = ingest.scan_rows(batch, P, device=dev)
     scan_s = time.perf_counter() - t0
-    ing_chunks, ing_want = [], []
+    ing_chunks = []
+    win_plain = []      # plain K1's hits in each window, for phase 12's fan-in
     for n, e in zip(names, ends):
         win = torch.from_numpy(streams[n][w_off:w_off + INGEST_WINDOW].copy()).to(dev)
         tail = torch.from_numpy(streams[n][w_off - WINDOW + 1:w_off].copy()).to(dev)
         want = rolling_hash.candidate_mask_plain(win[None], tables, P.mask, P.magic,
                                                  tail[None])
-        want = torch.nonzero(want[0]).flatten().cpu().numpy() + 1 + w_off
-        check(np.array_equal(e, want), f"scan_rows of {n} != plain K1 in stream context")
+        win_plain.append(torch.nonzero(want[0]).flatten().cpu().numpy())
+        check(np.array_equal(e, win_plain[-1] + 1 + w_off),
+              f"scan_rows of {n} != plain K1 in stream context")
         cuts = select_cuts(e, w_off + INGEST_WINDOW, P, start=w_off)
         for s, c in zip([w_off] + cuts[:-1], cuts):
             ing_chunks.append(streams[n][s:c].tobytes())
@@ -1376,13 +1708,19 @@ def main() -> int:
           "stats": {k: ingest.stats[k] - stats0[k] for k in ingest.stats}})
     del rows, batch, ing_chunks
 
-    # 12-14. the store's index tier ---------------------------------------
+    # 12. the multi-device layer -------------------------------------------
+    par, par_nums = parallel_phase(dev, P, streams, dstream, step_bounds,
+                                   step_digests, index, pre, w_off, win_plain,
+                                   args.seed)
+    emit(par)
+
+    # 13-15. the store's index tier ---------------------------------------
     ix = index_phase(dev, args.seed)
     emit(ix)
     emit(dist_index_phase(dev, args.seed))
     emit(similarity_index_phase(dev, step_chunks, step_digests, args.seed))
 
-    # 15. timings at the main path's shapes ----------------------------------
+    # 16. timings at the main path's shapes ----------------------------------
     dbuf = dstream.view(len(tasks), seg)
     k1_ms = cuda_ms(lambda: rolling_hash.candidate_mask(
         dbuf, tables, P.mask, P.magic, history=dhist), 5)
@@ -1491,6 +1829,16 @@ def main() -> int:
                 "bound_by": bnd[1], "library_ms": None, **extra}
 
     sim_src = "pbs_plus_tpu_torch/ops/similarity.py"
+    # the sequence-parallel mask reads the 2 GiB stream and writes its mask;
+    # the step is K1 over the same bytes, then K2's chain on each 4 MiB head:
+    # a launch's heads run side by side, but the launches of the data shards
+    # that share a card queue one after another on it
+    sp_bound = bound(2 * N_STREAMS * STREAM_BYTES, K1_OPS_PER_BYTE
+                     * N_STREAMS * STREAM_BYTES, int32_ops_per_s)
+    head_floor_ms = ((STEP_CHUNK + 8) // 64 + 1) * 64 * K2_ROUND_FLOOR_CYCLES \
+        / clock_hz * 1e3
+    step_bound = (par_nums["step"]["shards_per_card"] * head_floor_ms
+                  + sp_bound[0], "operations")
     emit({"torch_ops": [
         {"name": "cuckoo_probe", "route": "torch",
          "source": "pbs_plus_tpu_torch/ops/cuckoo.py",
@@ -1524,14 +1872,57 @@ def main() -> int:
                fold_launches["fold_fingerprint"], fold_ms, fold_plain_ms, fold_bound,
                shape=f"{len(step_chunks)} chunks, {step_bytes} bytes",
                plain_shape=f"{FP_SAMPLE} of the chunks, torch {fold_sample_ms} ms there"),
+        # the multi-device programs (phase 12), at its shapes
+        op_row("probe_local", "pbs_plus_tpu_torch/parallel/dist_index.py",
+               "pbs_plus_tpu/parallel/dist_index.py:62",
+               par_nums["step"]["launches"]["probe_local"],
+               par_nums["probe_local"]["ms"], par_nums["probe_local"]["ms"],
+               bound(PAR_PROBE_BATCH * (32 + 2 * cuckoo.BUCKET_BYTES + 1), 0,
+                     int32_ops_per_s),
+               shape=f"{PAR_PROBE_BATCH} digests over "
+                     f"{par_nums['probe_local']['shards']} index shards",
+               sharded_index_launches=par_nums["probe_local"]["launches"],
+               plain_shape="the ops are the plain version"),
+        op_row("step_simhash", sim_src, "pbs_plus_tpu/parallel/sharded_step.py:56",
+               par_nums["step"]["launches"]["simhash"],
+               par_nums["step"]["layers"]["simhash_ms"],
+               par_nums["simhash_host_ms"],
+               bound(N_STREAMS * (32 + 8), 2 * N_STREAMS * 256 * 64, FP64_FLOPS),
+               shape=[N_STREAMS, 64], plain_shape="numpy twin"),
+        op_row("sp_mask_local", "pbs_plus_tpu_torch/parallel/sp_chunker.py",
+               "pbs_plus_tpu/parallel/sp_chunker.py:25",
+               par_nums["sp"]["launches"], par_nums["sp"]["ms"],
+               par_nums["sp"]["plain_ms"], sp_bound,
+               shape=f"{N_STREAMS * STREAM_BYTES} bytes over {SEQ_SHARDS} shards",
+               one_device_k1_ms=par_nums["sp"]["one_ms"]),
+        op_row("step_body", "pbs_plus_tpu_torch/parallel/sharded_step.py",
+               "pbs_plus_tpu/parallel/sharded_step.py:39",
+               par_nums["step"]["launches"]["candidate_mask"],
+               par_nums["step"]["ms"], None, step_bound,
+               shape=f"{N_STREAMS} x {STREAM_BYTES} bytes, heads of "
+                     f"{STEP_CHUNK}, {PAR_DATA} x {PAR_INDEX} mesh",
+               bound_parts={"k2_head_chain_ms": head_floor_ms,
+                            "data_shards_per_card":
+                                par_nums["step"]["shards_per_card"],
+                            "k1_bytes_ms": sp_bound[0]},
+               layers=par_nums["step"]["layers"],
+               plain_k1_layer_ms=par_nums["step"]["k1_plain_ms"],
+               plain_shape="K1 layer only: the plain SHA-256 steps once per "
+                           f"64-byte block, {(STEP_CHUNK + 8) // 64 + 1:,} "
+                           "a head"),
     ]})
 
-    # 16. the kernels line ---------------------------------------------------
+    # 17. the kernels line ---------------------------------------------------
     emit({"kernels": [
         {"name": "candidate_mask", "route": "cuda",
          "source": "pbs_plus_tpu_torch/ops/csrc/rolling_hash.cu",
          "replaces": "pbs_plus_tpu/ops/pallas_rolling_hash.py:69",
          "launches": main_launches["candidate_mask"],
+         "launches_by_path": {
+             "main": main_launches["candidate_mask"],
+             "parallel_step": par_nums["step"]["launches"]["candidate_mask"],
+             "sequence_parallel": par_nums["sp"]["launches"],
+             "fan_in": par_nums["fan_in"]["k1"]},
          "max_abs_err": int(k1_err > 0),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": "bytes" if k1_bound_bytes >= k1_bound_ops else "operations",
@@ -1539,7 +1930,12 @@ def main() -> int:
         {"name": "sha256_chunks", "route": "cuda",
          "source": "pbs_plus_tpu_torch/ops/csrc/sha256.cu",
          "replaces": "pbs_plus_tpu/ops/sha256.py:120",
-         "launches": main_launches["sha256_chunks"], "max_abs_err": k2_err,
+         "launches": main_launches["sha256_chunks"],
+         "launches_by_path": {
+             "main": main_launches["sha256_chunks"],
+             "parallel_step": par_nums["step"]["launches"]["sha256_chunks"],
+             "fan_in": par_nums["fan_in"]["k2"]},
+         "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "plain_shape": f"size list {SHA_SIZES}, kernel {k2_small_ms} ms there",
          "bound_ms": k2_bound,

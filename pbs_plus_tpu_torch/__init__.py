@@ -19,9 +19,14 @@ kernel's plain PyTorch version.
   JAX ``ChunkStore``; K3 on the card), the spillable DigestLog and the
   delta tier's SimilarityIndex; snapshots, segments and manifests are
   byte-identical to the JAX package's.
-- parallel: the distributed index's service half (ShardMap,
-  IndexShardServer, DistIndexClient) on the JAX package's HTTP wire;
-  ``python -m pbs_plus_tpu_torch index-shard`` runs one shard node.
+- parallel: device meshes (``make_mesh``, ``make_seq_mesh``, the
+  process's ``data_mesh`` under the batched K1/K2 dispatches), the
+  multi-device dedup step, sequence-parallel chunking and the
+  index-sharded ``ShardedCuckooIndex``, one process driving every device;
+  ``python -m pbs_plus_tpu_torch dryrun-multichip`` runs them once.  Also
+  the distributed index's service half (ShardMap, IndexShardServer,
+  DistIndexClient) on the JAX package's HTTP wire; ``python -m
+  pbs_plus_tpu_torch index-shard`` runs one shard node.
 - convert: index and chunker state carried across from the JAX package.
 """
 
@@ -41,8 +46,11 @@ from .models import (ChunkRecord, CudaChunker, DedupConfig, DedupPipeline,
                      make_batch_hasher, make_chunker_factory)
 from .sidecar import DedupService, SidecarClient, serve_sidecar
 from .pxar import DedupIndex, DigestLog, SimilarityIndex
-from .parallel import DistIndexClient, IndexShardServer, ShardMap
-from .convert import index_from_reference, params_from_reference
+from .parallel import (DistIndexClient, IndexShardServer, ShardedCuckooIndex,
+                       ShardMap, make_mesh, make_seq_mesh,
+                       multichip_dedup_step, sp_chunk_stream)
+from .convert import (index_from_reference, params_from_reference,
+                      sharded_index_from_reference)
 
 __all__ = [
     "DEFAULT_PARAMS", "TEST_PARAMS", "WINDOW", "ChunkerParams", "select_cuts",
@@ -62,5 +70,8 @@ __all__ = [
     "DedupService", "serve_sidecar", "SidecarClient",
     "DedupIndex", "DigestLog", "SimilarityIndex",
     "DistIndexClient", "IndexShardServer", "ShardMap",
+    "make_mesh", "make_seq_mesh", "multichip_dedup_step", "sp_chunk_stream",
+    "ShardedCuckooIndex",
     "index_from_reference", "params_from_reference",
+    "sharded_index_from_reference",
 ]

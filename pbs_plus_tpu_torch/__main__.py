@@ -1,5 +1,5 @@
-"""Command line of the port: ``python -m pbs_plus_tpu_torch sidecar`` and
-``python -m pbs_plus_tpu_torch index-shard``.
+"""Command line of the port: ``python -m pbs_plus_tpu_torch sidecar``,
+``index-shard`` and ``dryrun-multichip``.
 
     python -m pbs_plus_tpu_torch sidecar --listen 127.0.0.1:18900 \\
         --chunk-avg 4194304 --device cuda
@@ -14,6 +14,13 @@ reaches it through a job row with ``chunker = "sidecar:127.0.0.1:18900"``.
 runs one node of the distributed dedup index (the JAX package's flags,
 ready line and stdin protocol); a server reaches it through
 ``PBS_PLUS_DIST_INDEX_SHARDS="s0=127.0.0.1:9001,s1=127.0.0.1:9002"``.
+
+    python -m pbs_plus_tpu_torch dryrun-multichip --devices 8 --device cuda
+
+runs the multi-device step and sequence-parallel chunking once at tiny
+shapes against the single-device path, over ``cuda:0..7``, or over
+``cuda:0`` repeated where fewer cards are visible; it prints a JSON
+summary.
 """
 
 from __future__ import annotations
@@ -44,6 +51,15 @@ def _cmd_index_shard(args: argparse.Namespace) -> int:
     return serve_shard(args)
 
 
+def _cmd_dryrun(args: argparse.Namespace) -> int:
+    import json
+
+    from .parallel.dryrun import dryrun_multichip
+    print(json.dumps(dryrun_multichip(args.devices, device=args.device)),
+          flush=True)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m pbs_plus_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -56,6 +72,11 @@ def main(argv: list[str] | None = None) -> int:
                        help="run one node of the distributed dedup index")
     add_shard_arguments(x)
     x.set_defaults(fn=_cmd_index_shard)
+    m = sub.add_parser("dryrun-multichip",
+                       help="run the multi-device step once at tiny shapes")
+    m.add_argument("--devices", type=int, default=8)
+    m.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    m.set_defaults(fn=_cmd_dryrun)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -1,8 +1,9 @@
 """State carried across from the JAX package.
 
 The port's index and chunker parameters are built from plain values that a
-JAX ``CuckooIndex`` or ``ChunkerParams`` holds, so both packages compute on
-the same state.  Nothing here imports the JAX package.
+JAX ``CuckooIndex``, ``ShardedCuckooIndex`` or ``ChunkerParams`` holds, so
+both packages compute on the same state.  Nothing here imports the JAX
+package.
 """
 
 from __future__ import annotations
@@ -32,6 +33,20 @@ def index_from_reference(table: np.ndarray, known: Iterable[bytes], *,
     for d in idx._known:
         if len(d) != 32:
             raise ValueError(f"digest must be 32 bytes, got {len(d)}")
+    return idx
+
+
+def sharded_index_from_reference(table: np.ndarray, known: Iterable[bytes],
+                                 mesh, *, n_buckets: int, seed: int = 0
+                                 ) -> "ShardedCuckooIndex":
+    """A port ``ShardedCuckooIndex`` over ``mesh`` holding a reference
+    ``ShardedCuckooIndex``'s host mirror (``inner._table``) and exact set
+    (``inner._known``), as ``index_from_reference`` does for a
+    ``CuckooIndex``."""
+    from .parallel.dist_index import ShardedCuckooIndex
+    idx = ShardedCuckooIndex(mesh, n_buckets=n_buckets, seed=seed)
+    idx.inner = index_from_reference(table, known, n_buckets=n_buckets,
+                                     seed=seed, device=idx.device)
     return idx
 
 

@@ -21,6 +21,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("rolling_hash", "sha256")
@@ -109,7 +111,8 @@ class Kernel:
     """One C entry point of a kernel library.
 
     The C function takes the CUDA device index first and returns the
-    ``cudaError_t`` of its launch; a non-zero code raises.  ``launches``
+    ``cudaError_t`` of its launch; a non-zero code raises.  The caller's
+    current device is the same after the call as before it.  ``launches``
     counts the launches made through this object, and nothing else adds to
     it."""
 
@@ -135,7 +138,11 @@ class Kernel:
         return self._fn
 
     def __call__(self, device_index: int, *args) -> None:
-        code = self._resolve()(device_index, *args)
+        # the C function sets the device; the guard puts the caller's
+        # current device back, so that a launch on another card of a mesh
+        # does not move later allocations of "cuda" there
+        with torch.cuda.device(device_index):
+            code = self._resolve()(device_index, *args)
         if code != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {code}: "
                                f"{self._err(code).decode()}")

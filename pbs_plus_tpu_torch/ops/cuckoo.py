@@ -85,16 +85,16 @@ stats = {"device_probes": 0, "table_uploads": 0, "row_uploads": 0,
          "upload_bytes": 0}
 
 
-def _lookup(table64: torch.Tensor, digests: torch.Tensor) -> torch.Tensor:
-    """table64 int64[NB, SLOTS] (the mirror's slots as one int64 each);
-    digests uint8[N, 32] on the same device → bool[N]."""
-    stats["device_probes"] += 1
-    nb = table64.shape[0]
+def _fingerprint_buckets(digests: torch.Tensor, n_buckets: int
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """digests uint8[N, 32] -> int64[N] each: the fingerprint as the
+    table's int64 slot value, and its two buckets in a table of
+    ``n_buckets``."""
     q = digests[:, :12].reshape(-1, 3, 4).to(torch.int64)
     w = (q[..., 0] << 24) | (q[..., 1] << 16) | (q[..., 2] << 8) | q[..., 3]
     fp0, fp1, bidx = w[:, 0], w[:, 1], w[:, 2]
     fp0 = torch.where((fp0 == 0) & (fp1 == 0), 0x5A5A5A5A, fp0)
-    mask = nb - 1
+    mask = n_buckets - 1
     b1 = bidx & mask
     # low bits of a product depend only on the operands' low bits, so the
     # mix stays exact in int64
@@ -102,6 +102,14 @@ def _lookup(table64: torch.Tensor, digests: torch.Tensor) -> torch.Tensor:
     # little-endian slot memory [fp0, fp1] == int64 fp0 + fp1 * 2**32, with
     # fp1 taken as signed so the sum never leaves the int64 range
     fpc = fp0 + (fp1 - ((fp1 >> 31) << 32)) * (1 << 32)
+    return fpc, b1, b2
+
+
+def _lookup(table64: torch.Tensor, digests: torch.Tensor) -> torch.Tensor:
+    """table64 int64[NB, SLOTS] (the mirror's slots as one int64 each);
+    digests uint8[N, 32] on the same device → bool[N]."""
+    stats["device_probes"] += 1
+    fpc, b1, b2 = _fingerprint_buckets(digests, table64.shape[0])
     hit = (table64[b1] == fpc[:, None]).any(dim=1)
     return hit | (table64[b2] == fpc[:, None]).any(dim=1)
 

@@ -37,6 +37,10 @@ SPAN = 256 * 132
 SPANS_PER_BLOCK = 16
 MAX_ROWS = 65535
 
+# multi-device dispatch evidence: bumped when a batch shards over the
+# data mesh (``batched_candidate_hits``)
+stats = {"mesh_dispatches": 0, "mesh_devices": 0}
+
 
 def device_tables(params: ChunkerParams, device="cuda") -> torch.Tensor:
     """int32[256]: ``buzhash_table(params.seed)`` as uint32 bit patterns,
@@ -163,6 +167,20 @@ def _pow2_len(n: int) -> int:
     return max(1 << 14, 1 << int(n - 1).bit_length()) if n else 1 << 14
 
 
+def _nonzero_rows(m: torch.Tensor, n_rows: int) -> np.ndarray:
+    """int64[K, 2] (row, column) of the True entries in ``m``'s first
+    ``n_rows`` rows, row-major, on the host."""
+    # nonzero over at most 2**30 elements per call: a [32, 64 MiB] batch
+    # is 2**31, past what torch.nonzero takes in one call on some versions
+    step = max(1, (1 << 30) // max(1, m.shape[1]))
+    nz = [np.empty((0, 2), np.int64)]
+    for r in range(0, n_rows, step):
+        part = torch.nonzero(m[r:min(r + step, n_rows)]).cpu().numpy()
+        part[:, 0] += r
+        nz.append(part)
+    return np.concatenate(nz)
+
+
 def batched_candidate_hits(bufs: list, hists: list, tables: torch.Tensor,
                            params: ChunkerParams) -> list[np.ndarray]:
     """Pack, dispatch and unpack one cross-stream candidate batch: stack
@@ -175,28 +193,44 @@ def batched_candidate_hits(bufs: list, hists: list, tables: torch.Tensor,
     copy device to device when they already lie on the tables' device.
     Shared by the DeviceFeeder and the whole-stream DedupPipeline.  On the
     card the hits are extracted with ``torch.nonzero`` there, and only the
-    positions come back to the host."""
+    positions come back to the host.
+
+    Multi-device: a batch of two rows or more whose tables' device is in
+    the process's data mesh (``parallel/mesh.py::data_mesh``) shards over
+    it: ``B_pad`` is padded up to a multiple of the mesh size, each
+    device takes an equal run of rows and its own K1 launch, and the
+    positions come back in row order.  Single-row dispatches stay
+    local."""
+    from ..parallel.mesh import dispatch_mesh
     B = len(bufs)
     dev = tables.device
     observe.add_scan_bytes("cuda" if dev.type == "cuda" else "torch-cpu",
                            sum(len(b) for b in bufs))
     S_pad = _pow2_len(max(len(b) for b in bufs))
     B_pad = 1 << int(B - 1).bit_length() if B > 1 else 1
-    dbuf = torch.zeros((B_pad, S_pad), dtype=torch.uint8, device=dev)
-    dhist = torch.zeros((B_pad, WINDOW - 1), dtype=torch.uint8, device=dev)
-    for i, (b, h) in enumerate(zip(bufs, hists)):
-        if len(b):
-            dbuf[i, :len(b)].copy_(_as_tensor(b))
-        if h is not None:
-            dhist[i].copy_(_as_tensor(h))
-    m = candidate_mask(dbuf, tables, params.mask, params.magic, history=dhist)
-    # nonzero over at most 2**30 elements per call: a [32, 64 MiB] batch
-    # is 2**31, past what torch.nonzero takes in one call on some versions
-    step = max(1, (1 << 30) // S_pad)
+    mesh = dispatch_mesh(B, dev)
+    devices = [dev] if mesh is None else list(mesh.devices.flat)
+    if mesh is not None:
+        n = mesh.size
+        B_pad = -(-max(B_pad, n) // n) * n
+        stats["mesh_dispatches"] += 1
+        stats["mesh_devices"] = n
+    per = B_pad // len(devices)                 # rows on each device
+    masks = []
+    for k, d in enumerate(devices):             # every launch, then any sync
+        dbuf = torch.zeros((per, S_pad), dtype=torch.uint8, device=d)
+        dhist = torch.zeros((per, WINDOW - 1), dtype=torch.uint8, device=d)
+        for i in range(k * per, min((k + 1) * per, B)):
+            if len(bufs[i]):
+                dbuf[i - k * per, :len(bufs[i])].copy_(_as_tensor(bufs[i]))
+            if hists[i] is not None:
+                dhist[i - k * per].copy_(_as_tensor(hists[i]))
+        masks.append(candidate_mask(dbuf, tables.to(d), params.mask,
+                                    params.magic, history=dhist))
     nz = []
-    for r in range(0, B, step):
-        part = torch.nonzero(m[r:min(r + step, B)]).cpu().numpy()
-        part[:, 0] += r
+    for k, m in enumerate(masks):
+        part = _nonzero_rows(m, max(0, min(per, B - k * per)))
+        part[:, 0] += k * per
         nz.append(part)
     nz = np.concatenate(nz)
     rows, cols = nz[:, 0], nz[:, 1]

@@ -45,6 +45,10 @@ MAX_CHUNK_BYTES = (1 << 29) - 64   # the JAX package's bound, kept as is
 
 _M32 = 0xFFFFFFFF
 
+# multi-device dispatch evidence: bumped when a batch shards over the
+# data mesh (``sha256_stream_chunks``)
+stats = {"mesh_dispatches": 0, "mesh_devices": 0}
+
 KERNEL = Kernel("sha256", "sha256_chunks_launch",
                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p])
@@ -171,7 +175,14 @@ def sha256_stream_chunks(stream, bounds: list[tuple[int, int]], *,
     """SHA-256 of ``stream[s:e]`` for each ``(s, e)`` in bounds, in input
     order.  ``stream`` is bytes, a numpy uint8 array (copied to
     ``device``) or a uint8 tensor (used where it lies).  One kernel launch
-    per ``max_batch`` chunks."""
+    per ``max_batch`` chunks.
+
+    Multi-device: where the stream's device is in the process's data mesh
+    (``parallel/mesh.py::data_mesh``), the stream is copied once to each
+    mesh device, each batch of two chunks or more splits its rows evenly
+    over the devices, one launch each, and the digests come back in input
+    order."""
+    from ..parallel.mesh import dispatch_mesh
     if not bounds:
         return []
     starts = np.array([s for s, _ in bounds], dtype=np.int64)
@@ -183,10 +194,24 @@ def sha256_stream_chunks(stream, bounds: list[tuple[int, int]], *,
         raise ValueError("chunk bounds outside the stream")
     dstarts = torch.from_numpy(starts).to(t.device)
     dlens = torch.from_numpy(lens).to(t.device)
-    parts = [sha256_words(t, dstarts[lo:lo + max_batch],
-                          dlens[lo:lo + max_batch])
-             for lo in range(0, len(bounds), max_batch)]
-    words = torch.cat(parts).cpu().numpy().astype(">u4")
+    copies = {t.device: t}      # the stream on each device
+    parts = []                  # every launch, then any sync
+    for lo in range(0, len(bounds), max_batch):
+        hi = min(lo + max_batch, len(bounds))
+        mesh = dispatch_mesh(hi - lo, t.device)
+        devices = [t.device] if mesh is None else list(mesh.devices.flat)
+        if mesh is not None:
+            stats["mesh_dispatches"] += 1
+            stats["mesh_devices"] = mesh.size
+        per = -(-(hi - lo) // len(devices))
+        for k, d in enumerate(devices):
+            a, b = lo + k * per, min(lo + (k + 1) * per, hi)
+            if a < b:
+                if d not in copies:
+                    copies[d] = t.to(d)
+                parts.append(sha256_words(copies[d], dstarts[a:b].to(d),
+                                          dlens[a:b].to(d)))
+    words = torch.cat([p.cpu() for p in parts]).numpy().astype(">u4")
     return [row.tobytes() for row in words]
 
 

@@ -32,8 +32,10 @@ Failure direction everywhere: an unreachable shard answers False (safe
 false negative) and a discard without an ack leaves the chunk file on
 disk -- never a false dedup skip, never a resurrected digest.
 
-The device-sharded half of the reference (``ShardedCuckooIndex``, a
-cuckoo table split over a device mesh) is not part of this module.
+The device half (``_probe_local``, ``probe_row``, ``ShardedCuckooIndex``)
+splits one cuckoo table over the ``index`` axis of a device mesh
+(``parallel/mesh.py``): each index device probes its own row range, and
+the partial hits are summed onto one device (``collectives.psum``).
 ``python -m pbs_plus_tpu_torch index-shard`` (or ``python -m
 pbs_plus_tpu_torch.parallel.dist_index``) runs one shard node.
 """
@@ -54,11 +56,179 @@ import urllib.parse
 from typing import Iterable, Iterator, Sequence
 
 import numpy as np
+import torch
 
+from ..ops.cuckoo import SLOTS, CuckooIndex, _fingerprint_buckets
 from ..pxar.digestlog import parse_segment_bytes
 from ..utils import atomicio, fswitness
+from ..utils.device import host_tensor, resolve
+from .collectives import psum, to_device
+from .mesh import Mesh
 
 L = logging.getLogger(__name__)
+
+
+# ---------------------------------------------------------------------------
+# device half: a cuckoo table sharded over a mesh's index axis
+# ---------------------------------------------------------------------------
+
+# calls of ``_probe_local`` (one per index shard of a probe), on any device
+stats = {"probe_local": 0}
+
+
+def _probe_local(table_shard: torch.Tensor, digests: torch.Tensor,
+                 n_buckets: int, base: int) -> torch.Tensor:
+    """table_shard int64[NB/ni, SLOTS]: rows ``base`` up to
+    ``base + NB/ni`` of an ``n_buckets`` table (``CuckooIndex``'s slots as
+    one int64 each); digests uint8[N, 32] on the same device -> partial
+    hits bool[N], True where a bucket of the digest lies in this shard
+    and holds its fingerprint.  The caller sums the partial hits of all
+    shards (``collectives.psum``)."""
+    stats["probe_local"] += 1
+    rows = table_shard.shape[0]
+    fpc, b1, b2 = _fingerprint_buckets(digests, n_buckets)
+
+    def check(b):
+        local = b - base
+        in_range = (local >= 0) & (local < rows)
+        got = table_shard[local.clamp(0, rows - 1)]
+        return (got == fpc[:, None]).any(dim=1) & in_range
+
+    return check(b1) | check(b2)
+
+
+def probe_row(mesh: Mesh, tables: np.ndarray, digests: torch.Tensor,
+              n_buckets: int, *, row: dict | None = None,
+              index_axis: str = "index") -> torch.Tensor:
+    """The index-sharded probe of one mesh row: ``digests`` uint8[N, 32]
+    go to each ``index_axis`` device of the row at coordinates ``row``
+    (every other axis at 0), each probes its row range of ``tables`` (a
+    ``shard_table``), and the partial hits are summed onto the row's
+    first device -> bool[N] there."""
+    row = row or {}
+    ni = mesh.shape[index_axis]
+    rows = n_buckets // ni
+    parts = []
+    for k in range(ni):
+        pos = mesh.position(**row, **{index_axis: k})
+        parts.append(_probe_local(tables[pos],
+                                  to_device(digests, mesh.devices[pos]),
+                                  n_buckets, k * rows).to(torch.int32))
+    return psum(parts, mesh.devices[mesh.position(**row)]) > 0
+
+
+def shard_table(mesh: Mesh, table: np.ndarray, axis_name: str = "index"
+                ) -> np.ndarray:
+    """A host mirror uint32[NB, SLOTS, 2] placed over ``mesh``: an object
+    array of the mesh's shape whose element at each position is the
+    int64[NB/ni, SLOTS] row range of that position's ``axis_name`` index
+    on its device (one upload per row range and device; a repeated
+    device holds one copy)."""
+    ni = mesh.shape[axis_name]
+    nb = table.shape[0]
+    if nb % ni:
+        raise ValueError("n_buckets must divide by index-axis size")
+    rows = nb // ni
+    t64 = np.ascontiguousarray(table).view(np.int64).reshape(nb, SLOTS)
+    axis = mesh.axis_names.index(axis_name)
+    out = np.empty(mesh.devices.shape, dtype=object)
+    placed: dict = {}
+    for pos, dev in np.ndenumerate(mesh.devices):
+        k = pos[axis]
+        if (k, dev) not in placed:
+            # a copy: the mirror keeps changing under later inserts
+            placed[(k, dev)] = torch.from_numpy(
+                t64[k * rows:(k + 1) * rows].copy()).to(dev)
+        out[pos] = placed[(k, dev)]
+    return out
+
+
+class ShardedCuckooIndex:
+    """Host-authoritative cuckoo index whose device table shards over the
+    ``index`` axis of a mesh.  Inserts mutate the host mirror, a port
+    ``CuckooIndex`` (so inserts and evictions stay byte-identical to the
+    reference's); ``device_table`` re-places the whole table after a
+    change, as the reference does.  ``device`` is where ``probe``
+    gathers its verdicts (default: the mesh's first device)."""
+
+    def __init__(self, mesh: Mesh, *, axis_name: str = "index",
+                 n_buckets: int = 1 << 16, seed: int = 0, device=None):
+        if n_buckets % mesh.shape[axis_name]:
+            raise ValueError("n_buckets must divide by index-axis size")
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self.device = resolve(device) if device is not None \
+            else mesh.devices.flat[0]
+        self.inner = CuckooIndex(n_buckets=n_buckets, seed=seed,
+                                 device=self.device)
+        self._device_table: np.ndarray | None = None
+
+    # host-authoritative ops delegate
+    def insert(self, digest: bytes) -> bool:
+        r = self.inner.insert(digest)
+        if r:
+            self._device_table = None
+        return r
+
+    def insert_many(self, digests) -> int:
+        """Bulk preload: one vectorized host-mirror build, one sharded
+        re-upload at the next ``device_table`` call."""
+        added = self.inner.insert_many(list(digests))
+        if added:
+            self._device_table = None
+        return added
+
+    def contains_exact(self, digest: bytes) -> bool:
+        return self.inner.contains_exact(digest)
+
+    def __len__(self) -> int:
+        return len(self.inner)
+
+    def device_table(self) -> np.ndarray:
+        """``shard_table`` of the host mirror, re-placed after a change."""
+        if self._device_table is None:
+            self._device_table = shard_table(self.mesh, self.inner._table,
+                                             self.axis_name)
+        return self._device_table
+
+    def probe(self, digests: np.ndarray | torch.Tensor, *,
+              data_axis: str | None = "data") -> torch.Tensor:
+        """digests uint8[N,32] -> bool[N] on ``device``.  With
+        ``data_axis``, N is zero-padded to a multiple of the data axis
+        and splits over it (each data shard's digests go to every index
+        shard of its row); the partial hits of a row's index shards are
+        summed, and the row's verdicts gathered."""
+        if isinstance(digests, torch.Tensor):
+            d = digests.to(torch.uint8).reshape(-1, 32)
+        else:
+            d = host_tensor(np.ascontiguousarray(digests, dtype=np.uint8)
+                            ).reshape(-1, 32)
+        n = d.shape[0]
+        tables = self.device_table()
+        use_data = bool(data_axis) and data_axis in self.mesh.shape
+        nd = self.mesh.shape[data_axis] if use_data else 1
+        pad = (-n) % nd
+        if pad:
+            d = torch.cat([d, torch.zeros((pad, 32), dtype=torch.uint8,
+                                          device=d.device)])
+        hits = []
+        for i, piece in enumerate(d.chunk(nd) if n + pad else [d]):
+            row = {data_axis: i} if use_data else {}
+            hits.append(to_device(
+                probe_row(self.mesh, tables, piece, self.inner.n_buckets,
+                          row=row, index_axis=self.axis_name), self.device))
+        return torch.cat(hits)[:n]
+
+    def probe_confirmed(self, digests: list[bytes]) -> list[bool]:
+        arr = np.frombuffer(b"".join(digests), dtype=np.uint8).reshape(-1, 32)
+        maybe = self.probe(arr).cpu().numpy()
+        return [bool(m) and self.contains_exact(d)
+                for m, d in zip(maybe, digests)]
+
+
+# ---------------------------------------------------------------------------
+# service half
+# ---------------------------------------------------------------------------
 
 
 WIRE_PREFIX = "/distidx/v1"

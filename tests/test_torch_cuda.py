@@ -263,3 +263,115 @@ def test_similarity_index_sketches_on_card(cuda):
     got = SimilarityIndex(device=cuda).sketch_batch(chunks)
     assert similarity.stats["content_sketch"] == before + 1
     assert np.array_equal(got, similarity.content_sketch_host(chunks))
+
+
+def test_sharded_step_on_repeated_card_equals_one_device(cuda):
+    from pbs_plus_tpu_torch.parallel import (build_step_inputs, make_mesh,
+                                             multichip_dedup_step)
+    from pbs_plus_tpu_torch.parallel.dist_index import shard_table
+    index = cuckoo.CuckooIndex(n_buckets=1 << 12, device=cuda)
+    outs = []
+    for devs in (["cuda:0"] * 8, ["cuda:0"]):
+        mesh = make_mesh(devices=devs)
+        s, t, _, p, host = build_step_inputs(mesh, batch=8, seg_len=1 << 16,
+                                             params=TEST_PARAMS, index=index)
+        index.insert(hashlib.sha256(host[3, :4096].tobytes()).digest())
+        k1 = rolling_hash.KERNEL.launches
+        out = multichip_dedup_step(mesh, chunk_len=4096, n_buckets=1 << 12)(
+            s, t, shard_table(mesh, index._table), p, TEST_PARAMS.mask,
+            TEST_PARAMS.magic)
+        torch.cuda.synchronize()
+        assert rolling_hash.KERNEL.launches == k1 + mesh.shape["data"]
+        outs.append([x.cpu() for x in out])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert outs[0][1].tolist() == [False] * 3 + [True] + [False] * 4
+
+
+def test_sp_chunker_on_repeated_card_equals_one_device(cuda):
+    from pbs_plus_tpu_torch.parallel import make_seq_mesh, sp_chunk_stream
+    data = _bytes((8 << 20) + 5, 17)
+    before = rolling_hash.KERNEL.launches
+    cuts = sp_chunk_stream(make_seq_mesh(devices=["cuda:0"] * 8), data,
+                           TEST_PARAMS)
+    assert rolling_hash.KERNEL.launches == before + 8
+    assert cuts == rolling_hash.chunk_stream_device(data, TEST_PARAMS,
+                                                    device="cpu")
+
+
+def test_fan_in_on_repeated_card_equals_local(cuda):
+    from pbs_plus_tpu_torch.parallel import make_seq_mesh, mesh
+    bufs = [_bytes(n, n) for n in (70_000, 1 << 20, 5, 300_001, 0)]
+    hists = [_bytes(63, i) if i % 2 else None for i in range(len(bufs))]
+    tables = rolling_hash.device_tables(TEST_PARAMS, cuda)
+    stream = _bytes(1 << 20, 3)
+    bounds = [(i * 1000, i * 1000 + 700 + i) for i in range(900)]
+    local = (rolling_hash.batched_candidate_hits(bufs, hists, tables,
+                                                 TEST_PARAMS),
+             sha256.sha256_stream_chunks(stream, bounds, device=cuda))
+    before = mesh.set_data_mesh(make_seq_mesh(devices=["cuda:0"] * 4,
+                                              axis_name="data"))
+    try:
+        k1, k2 = rolling_hash.KERNEL.launches, sha256.KERNEL.launches
+        hits = rolling_hash.batched_candidate_hits(bufs, hists, tables,
+                                                   TEST_PARAMS)
+        digs = sha256.sha256_stream_chunks(stream, bounds, device=cuda)
+        assert rolling_hash.KERNEL.launches == k1 + 4
+        assert sha256.KERNEL.launches == k2 + 4
+    finally:
+        mesh.set_data_mesh(before)
+    assert all(np.array_equal(a, b) for a, b in zip(hits, local[0]))
+    assert digs == local[1] == [hashlib.sha256(stream[s:e].tobytes()).digest()
+                                for s, e in bounds]
+
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more")
+    n = min(8, 1 << (torch.cuda.device_count().bit_length() - 1))
+    return [f"cuda:{i}" for i in range(n)]
+
+
+def test_multi_device_layer_on_distinct_cards_equals_one_card(cards):
+    from pbs_plus_tpu_torch.parallel import (build_step_inputs, make_mesh,
+                                             make_seq_mesh, mesh,
+                                             multichip_dedup_step,
+                                             sp_chunk_stream)
+    from pbs_plus_tpu_torch.parallel.dist_index import shard_table
+    index = cuckoo.CuckooIndex(n_buckets=1 << 12, device="cuda:0")
+    outs = []
+    for devs in (cards, ["cuda:0"]):
+        m = make_mesh(devices=devs)
+        s, t, _, p, host = build_step_inputs(m, batch=8, seg_len=1 << 16,
+                                             params=TEST_PARAMS, index=index)
+        index.insert(hashlib.sha256(host[5, :4096].tobytes()).digest())
+        out = multichip_dedup_step(m, chunk_len=4096, n_buckets=1 << 12)(
+            s, t, shard_table(m, index._table), p, TEST_PARAMS.mask,
+            TEST_PARAMS.magic)
+        outs.append([x.cpu() for x in out])
+        assert torch.cuda.current_device() == 0
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    data = _bytes((16 << 20) + 3, 5)
+    assert sp_chunk_stream(make_seq_mesh(devices=cards), data, TEST_PARAMS) \
+        == rolling_hash.chunk_stream_device(data, TEST_PARAMS)
+    # the batched dispatches fan out over every card by default
+    assert mesh.data_mesh() is not None
+    tables = rolling_hash.device_tables(TEST_PARAMS, "cuda:0")
+    bufs = [_bytes(300_000, i) for i in range(6)]
+    fan = rolling_hash.batched_candidate_hits(bufs, [None] * 6, tables,
+                                              TEST_PARAMS)
+    stream = _bytes(1 << 20, 4)
+    bounds = [(i * 999, i * 999 + 500 + i) for i in range(1000)]
+    digs = sha256.sha256_stream_chunks(stream, bounds, device="cuda:0")
+    assert torch.cuda.current_device() == 0
+    prev = mesh.set_data_mesh(None)
+    try:
+        local = rolling_hash.batched_candidate_hits(bufs, [None] * 6, tables,
+                                                    TEST_PARAMS)
+    finally:
+        mesh.set_data_mesh(prev)
+    assert all(np.array_equal(a, b) for a, b in zip(fan, local))
+    assert digs == [hashlib.sha256(stream[s:e].tobytes()).digest()
+                    for s, e in bounds]

@@ -26,6 +26,7 @@ from pbs_plus_tpu_torch.models import (CudaChunker, DedupConfig,
 from pbs_plus_tpu_torch.models import SimilarityModel, VerifyPipeline
 from pbs_plus_tpu_torch.ops import (fingerprint, ingest, rolling_hash, sha256,
                                     similarity)
+from pbs_plus_tpu_torch import parallel
 from pbs_plus_tpu_torch.parallel import dist_index
 from pbs_plus_tpu_torch.pxar import DedupIndex, SimilarityIndex
 from pbs_plus_tpu_torch.sidecar import DedupService, serve_sidecar
@@ -199,6 +200,11 @@ with tempfile.TemporaryDirectory() as tmp:
     finally:
         node.stop()
 
+# the multi-device layer: the sharded step and sequence-parallel cuts over
+# a repeated-cpu mesh, held against one device
+from pbs_plus_tpu_torch.parallel import dryrun_multichip
+assert dryrun_multichip(2, device="cpu")["hits"] == 1
+
 bad = [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
 assert not bad, bad
 print(len(mods))
@@ -209,7 +215,7 @@ def test_port_imports_without_jax_or_reference():
     r = subprocess.run([sys.executable, "-c", _GATE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 37
+    assert int(r.stdout.split()[-1]) >= 42
 
 
 def test_cuda_request_raises_without_card(tmp_path):
@@ -244,6 +250,9 @@ def test_cuda_request_raises_without_card(tmp_path):
             lambda: dist_index.serve_shard(argparse.Namespace(
                 shard_id="s0", host="127.0.0.1", port=0, token="",
                 spill_dir="", budget_mb=1, resident_mb=1, snapshot="",
-                device="cuda"))):
+                device="cuda")),
+            lambda: parallel.make_mesh(),
+            lambda: parallel.make_seq_mesh(2),
+            lambda: parallel.dryrun_multichip(2)):
         with pytest.raises(CudaUnavailableError):
             call()
