@@ -26,6 +26,12 @@ runs one phase per line:
               8 writer threads feeding 4 MiB pieces
    layers     one step's time by layer, and the device's busy share under
               torch.profiler
+   fused_ingest the same streams through 8 FusedIngestStream writers in
+              4 MiB pieces and one collector_for(store) at the production
+              policy (16 MiB, 4096 chunks, 25 ms): records == the main
+              path's cuts and hashlib, new + known == chunks, one K1
+              launch per scanning flush, K2 and K3 launched; the flush
+              counters and the ingest stage seconds
 7. sidecar    the route an unmodified backup server takes: DedupService on
               the card, 8 client threads streaming the 8 streams through
               Chunk in 4 MiB pages, InsertIndex of backup #1, backup #2
@@ -358,6 +364,139 @@ def digests_of(rng, n: int) -> list[bytes]:
 def pct(ms: list[float]) -> dict:
     return {"p50_ms": float(np.percentile(ms, 50)),
             "p99_ms": float(np.percentile(ms, 99))}
+
+
+class FusedStore:
+    """The fused_ingest phase's store: thread-safe, a dict from digest to
+    chunk length (no chunk bytes), and a declared batched probe on a
+    fresh port ``DedupIndex`` at a server's defaults, so K3 runs on the
+    collector's path.  ``new`` and ``known`` count every chunk's verdict."""
+
+    thread_safe = True
+
+    def __init__(self, dev):
+        from pbs_plus_tpu_torch.pxar import DedupIndex
+        self.index = DedupIndex(device=dev)
+        self.lock = threading.Lock()
+        self.lengths: dict[bytes, int] = {}     # guarded-by: self.lock
+        self.new = 0                            # guarded-by: self.lock
+        self.known = 0                          # guarded-by: self.lock
+
+    def ingest_capabilities(self):
+        from pbs_plus_tpu_torch.pxar.ingestbackend import IngestCapabilities
+        return IngestCapabilities(probe=True, presketch=False)
+
+    def probe_batch(self, digests):
+        return self.index.probe_batch(digests)
+
+    def insert(self, digest, chunk, verify=False) -> bool:
+        with self.lock:
+            if digest in self.lengths:
+                self.known += 1
+                return False
+            self.lengths[digest] = len(chunk)
+            self.new += 1
+            self.index.insert(digest)
+            return True
+
+    def note_dedup_hit(self, digest) -> bool:
+        with self.lock:
+            self.known += 1
+        return True
+
+    def touch(self, digest) -> None:
+        pass
+
+
+def fused_ingest_phase(dev, P, streams: dict, ref_bounds: dict,
+                       ref_digests: dict, streaming_mib_s: float) -> dict:
+    """Backup #1 of the 8 streams through 8 ``FusedIngestStream`` writers
+    and one ``collector_for(store)`` at the production policy, as a
+    server with ``PBS_PLUS_FUSED_INGEST`` on runs it: every flush packs
+    whatever the writers deposited into one K1 launch, one K2 batch and
+    one K3 probe."""
+    from pbs_plus_tpu_torch.ops import cuckoo, ingest, rolling_hash, sha256
+    from pbs_plus_tpu_torch.pxar import FusedIngestStream, collector_for
+    from pbs_plus_tpu_torch.pxar import ingestbatch
+    from pbs_plus_tpu_torch.utils import trace
+
+    names = sorted(streams)
+    for knob in ("PBS_PLUS_INGEST_BATCH_BYTES", "PBS_PLUS_INGEST_MAX_WAIT_MS"):
+        os.environ.pop(knob, None)
+    store = FusedStore(dev)
+    coll = collector_for(store, device=dev)
+    check((coll.batch_bytes, coll.batch_chunks, coll.max_wait)
+          == (16 << 20, 4096, 0.025), "the collector has the production policy")
+    m0, h0 = ingestbatch.metrics_snapshot(), trace.histograms()
+    scans0 = ingest.stats["scan_dispatches"]
+    rolling_hash.KERNEL.launches = 0
+    sha256.KERNEL.launches = 0
+    cuckoo.stats["device_probes"] = 0
+    out, errs, devs = {}, [], []
+    barrier = threading.Barrier(len(names))
+
+    def writer(name):
+        try:
+            a = streams[name]
+            s = FusedIngestStream(store, P, coll)     # registered before any deposit
+            barrier.wait()
+            for off in range(0, len(a), PIECE_BYTES):
+                s.write(a[off:off + PIECE_BYTES].tobytes())
+            out[name] = s.finish()
+            devs.append(torch.cuda.current_device())
+        except BaseException as e:     # surfaced by the check below
+            errs.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=writer, args=(n,)) for n in names]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    seconds = time.perf_counter() - t0
+    check(not errs and not any(t.is_alive() for t in threads),
+          f"fused-ingest writers failed: {errs}")
+    launches = {"candidate_mask": rolling_hash.KERNEL.launches,
+                "sha256_chunks": sha256.KERNEL.launches,
+                "cuckoo_probe": cuckoo.stats["device_probes"]}
+    m1, h1 = ingestbatch.metrics_snapshot(), trace.histograms()
+    m = {k: m1[k] - m0[k] for k in m0 if k != "occupancy"}
+    packed = m["bytes_packed"] + m["padding_bytes"]
+    m["occupancy"] = m["bytes_packed"] / packed if packed else 0.0
+    scan_flushes = ingest.stats["scan_dispatches"] - scans0
+    for n in names:
+        check(out[n] == list(zip([e for _, e in ref_bounds[n]], ref_digests[n])),
+              f"fused-ingest records of {n} != main path cuts + hashlib")
+    chunks = sum(len(out[n]) for n in names)
+    distinct = len({d for n in names for d in ref_digests[n]})
+    check(store.new + store.known == chunks, "fused ingest: new + known != chunks")
+    check(store.new == distinct, "fused ingest: new != distinct digests")
+    check(m["chunks"] == chunks and m["failed_flushes"] == 0,
+          f"fused-ingest counters: {m}")
+    check(launches["candidate_mask"] == scan_flushes > 0,
+          f"K1 launches {launches} != scan flushes {scan_flushes}")
+    check(launches["sha256_chunks"] > 0 and launches["cuckoo_probe"] > 0,
+          f"a kernel of the fused-ingest path did not launch: {launches}")
+    check(devs == [0] * len(names), f"flusher threads moved the device: {devs}")
+    stages = {}
+    for stage in ("fused", "cdc", "sha", "probe"):
+        key = f'pbs_plus_ingest_stage_seconds{{stage="{stage}"}}'
+        was = h0.get(key, {"count": 0, "sum_s": 0.0})
+        stages[stage] = {"count": h1[key]["count"] - was["count"],
+                         "sum_s": h1[key]["sum_s"] - was["sum_s"]}
+    work_s = sum(stages[s]["sum_s"] for s in ("cdc", "sha", "probe"))
+    mib = len(names) * STREAM_BYTES / 2**20
+    return {"phase": "fused_ingest", "writers": len(names), "piece": PIECE_BYTES,
+            "policy": {"batch_bytes": coll.batch_bytes,
+                       "batch_chunks": coll.batch_chunks,
+                       "max_wait_s": coll.max_wait, "linger_s": coll.linger},
+            "seconds": seconds, "mib_s": mib / seconds,
+            "streaming_mib_s": streaming_mib_s,
+            "chunks": chunks, "new_chunks": store.new,
+            "known_chunks": store.known, "scan_flushes": scan_flushes,
+            "metrics": m, "launches": launches, "stage_seconds": stages,
+            "sha_share_of_stages": stages["sha"]["sum_s"] / work_s
+            if work_s else None}
 
 
 def index_phase(dev, seed: int) -> dict:
@@ -1411,6 +1550,11 @@ def main() -> int:
           "device_busy_share": busy_ms / (prof_s * 1e3) if dev_ms else None,
           "top_device_ms": top(dev_ms, 8)})
 
+    # the same streams through the store's fused-ingest collector
+    fused = fused_ingest_phase(dev, P, streams, ref_bounds, ref_digests,
+                               gib / stream_s)
+    emit(fused)
+
     # 7. the sidecar route -----------------------------------------------------
     # the route an unmodified server takes (job rows with chunker =
     # "sidecar:<host:port>"): the service on the card, the index preloaded
@@ -1846,6 +1990,7 @@ def main() -> int:
          "launches": main_launches["cuckoo_probe"], "max_abs_err": 0,
          "ms": k3_ms, "plain_ms": k3_ms, "bound_ms": k3_bound,
          "bound_by": "bytes", "library_ms": k3_ms,
+         "fused_ingest_launches": fused["launches"]["cuckoo_probe"],
          "index": {"launches": ix["k3_launches"],
                    "table_bytes": INDEX_BUDGET_MB << 20,
                    "batch_ms": ix["k3_ms"],
@@ -1922,7 +2067,8 @@ def main() -> int:
              "main": main_launches["candidate_mask"],
              "parallel_step": par_nums["step"]["launches"]["candidate_mask"],
              "sequence_parallel": par_nums["sp"]["launches"],
-             "fan_in": par_nums["fan_in"]["k1"]},
+             "fan_in": par_nums["fan_in"]["k1"],
+             "fused_ingest": fused["launches"]["candidate_mask"]},
          "max_abs_err": int(k1_err > 0),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": "bytes" if k1_bound_bytes >= k1_bound_ops else "operations",
@@ -1934,7 +2080,8 @@ def main() -> int:
          "launches_by_path": {
              "main": main_launches["sha256_chunks"],
              "parallel_step": par_nums["step"]["launches"]["sha256_chunks"],
-             "fan_in": par_nums["fan_in"]["k2"]},
+             "fan_in": par_nums["fan_in"]["k2"],
+             "fused_ingest": fused["launches"]["sha256_chunks"]},
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "plain_shape": f"size list {SHA_SIZES}, kernel {k2_small_ms} ms there",

@@ -18,7 +18,9 @@ kernel's plain PyTorch version.
 - pxar: the store's dedup-index tier -- DedupIndex (the ``index=`` of a
   JAX ``ChunkStore``; K3 on the card), the spillable DigestLog and the
   delta tier's SimilarityIndex; snapshots, segments and manifests are
-  byte-identical to the JAX package's.
+  byte-identical to the JAX package's.  And the store's fused-ingest
+  write path: IngestCollector (one K1 launch and one K2 batch per flush
+  across every concurrent writer), FusedIngestStream and collector_for.
 - parallel: device meshes (``make_mesh``, ``make_seq_mesh``, the
   process's ``data_mesh`` under the batched K1/K2 dispatches), the
   multi-device dedup step, sequence-parallel chunking and the
@@ -45,7 +47,8 @@ from .models import (ChunkRecord, CudaChunker, DedupConfig, DedupPipeline,
                      VerifyPipeline, VerifyResult, get_feeder,
                      make_batch_hasher, make_chunker_factory)
 from .sidecar import DedupService, SidecarClient, serve_sidecar
-from .pxar import DedupIndex, DigestLog, SimilarityIndex
+from .pxar import (DedupIndex, DigestLog, FusedIngestStream, IngestCollector,
+                   SimilarityIndex, collector_for)
 from .parallel import (DistIndexClient, IndexShardServer, ShardedCuckooIndex,
                        ShardMap, make_mesh, make_seq_mesh,
                        multichip_dedup_step, sp_chunk_stream)
@@ -69,6 +72,7 @@ __all__ = [
     "VerifyPipeline", "VerifyResult", "SimilarityModel",
     "DedupService", "serve_sidecar", "SidecarClient",
     "DedupIndex", "DigestLog", "SimilarityIndex",
+    "IngestCollector", "FusedIngestStream", "collector_for",
     "DistIndexClient", "IndexShardServer", "ShardMap",
     "make_mesh", "make_seq_mesh", "multichip_dedup_step", "sp_chunk_stream",
     "ShardedCuckooIndex",

@@ -21,7 +21,7 @@ import os
 import numpy as np
 import torch
 
-from ..utils.device import resolve
+from ..utils.device import resolve, resolve_indexed
 
 
 class Mesh:
@@ -53,17 +53,6 @@ class Mesh:
         return list(self.devices[self.position(**{axis_name: slice(None)})])
 
 
-def _normalize(device) -> torch.device:
-    dev = resolve(device)
-    if dev.type == "cuda":
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        if dev.index >= torch.cuda.device_count():
-            raise ValueError(f"{dev} is not a visible device "
-                             f"({torch.cuda.device_count()} visible)")
-    return dev
-
-
 def _devices(n_devices: int | None, devices) -> list[torch.device]:
     """``devices`` (default: every visible card) cut to ``n_devices``;
     raises when more are asked for than the list holds."""
@@ -72,7 +61,7 @@ def _devices(n_devices: int | None, devices) -> list[torch.device]:
         devs = [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     else:
-        devs = [_normalize(d) for d in devices]
+        devs = [resolve_indexed(d) for d in devices]
     n = n_devices or len(devs)
     if not 0 < n <= len(devs):
         raise ValueError(f"need {n} devices, have {len(devs)}")

@@ -35,6 +35,21 @@ def resolve(device: str | torch.device | None = "cuda") -> torch.device:
     return dev
 
 
+def resolve_indexed(device: str | torch.device | None = "cuda") -> torch.device:
+    """``resolve(device)`` with a CUDA device's index named (``"cuda"``
+    becomes the calling thread's current card), so work launched later
+    from another thread lands on the same card; raises for an index that
+    is not visible."""
+    dev = resolve(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
+            raise ValueError(f"{dev} is not a visible device "
+                             f"({torch.cuda.device_count()} visible)")
+    return dev
+
+
 def host_tensor(a: np.ndarray) -> torch.Tensor:
     """A CPU tensor over ``a``'s memory, without a copy.  Read-only arrays
     (views of ``bytes``) are accepted: the port never writes through the

@@ -1,40 +1,111 @@
 """Histogram observations of the port.
 
 A copy of the part of the JAX package's ``utils/trace.py`` that the index
-tier calls: ``record``, a histogram-only observation for hot sites, over
-a closed registry of names (``SPANS``).  The reference feeds its
-histograms to the server's metrics module; the port has no server, so
-they accumulate here (``histograms()``) and nothing of the JAX package is
-imported.  The reference's spans, ring and context propagation have no
-caller in the port yet and are not copied.
+tier and the ingest writers call: ``span`` (a timed block), ``emit`` (a
+pre-measured one), ``record`` (a histogram-only observation for hot
+sites) and ``enabled``, over a closed registry of names (``SPANS``).  The
+reference feeds its histograms to the server's metrics module; the port
+has no server, so they accumulate here (``histograms()``) and nothing of
+the JAX package is imported.  The reference's span ring, context
+propagation and bench-only kill switch have no caller in the port and are
+not copied: tracing is always on, and span attributes are accepted and
+dropped.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
-# name -> histogram it feeds.  The set is closed: record() rejects
-# unknown names.
+# name -> (histogram it feeds, constant labels or None).  The set is
+# closed: span(), emit() and record() reject unknown names.
 SPANS = {
+    # batched ingest stages (pxar/transfer.py, pxar/ingestbatch.py)
+    "ingest.fused": ("pbs_plus_ingest_stage_seconds", {"stage": "fused"}),
+    "ingest.cdc": ("pbs_plus_ingest_stage_seconds", {"stage": "cdc"}),
+    "ingest.sha": ("pbs_plus_ingest_stage_seconds", {"stage": "sha"}),
+    "ingest.probe": ("pbs_plus_ingest_stage_seconds", {"stage": "probe"}),
+    "ingest.presketch": ("pbs_plus_ingest_stage_seconds",
+                         {"stage": "presketch"}),
     # spillable exact-confirm tier (pxar/digestlog.py)
-    "digestlog.confirm": "pbs_plus_digestlog_confirm_read_seconds",
+    "digestlog.confirm": ("pbs_plus_digestlog_confirm_read_seconds", None),
 }
+
+
+def _series(hist: str, labels: "dict | None") -> str:
+    """The key of one histogram series: its name, with its labels in the
+    exposition format (``name{stage="sha"}``) where it has any."""
+    if not labels:
+        return hist
+    return hist + "{" + ",".join(f'{k}="{v}"'
+                                 for k, v in sorted(labels.items())) + "}"
+
+
+_KEYS = {name: _series(*spec) for name, spec in SPANS.items()}
 
 _lock = threading.Lock()
 _hist: "dict[str, list]" = {}                   # guarded-by: _lock
 
 
-def record(name: str, seconds: float) -> None:
-    """One observation of ``seconds`` into the histogram ``name`` feeds."""
+def _check(name: str) -> None:
     if name not in SPANS:
         raise ValueError(f"unregistered span name {name!r}")
+
+
+def _observe(name: str, seconds: float) -> None:
     with _lock:
-        h = _hist.setdefault(SPANS[name], [0, 0.0])
+        h = _hist.setdefault(_KEYS[name], [0, 0.0])
         h[0] += 1
         h[1] += seconds
 
 
+def record(name: str, seconds: float) -> None:
+    """One observation of ``seconds`` into the histogram ``name`` feeds."""
+    _check(name)
+    _observe(name, seconds)
+
+
+def emit(name: str, seconds: float, **attrs) -> None:
+    """A pre-measured span of ``seconds`` ending now: for aggregated
+    measurements a context manager cannot bracket (the sequential
+    writer's per-chunk stage accumulators)."""
+    _check(name)
+    _observe(name, seconds)
+
+
+class _Span:
+    """One open span; use only as a context manager.  It is observed on
+    exit, also when the block raises."""
+
+    __slots__ = ("name", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "_Span":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        _observe(self.name, time.perf_counter() - self._t0)
+        return False
+
+
+def span(name: str, **attrs) -> _Span:
+    """Open a timed span (context manager) of a registered ``name``."""
+    _check(name)
+    return _Span(name)
+
+
+def enabled() -> bool:
+    """Always True: the port keeps no kill switch.  Instrumentation that
+    pays per-chunk measurement cost outside the span calls (the writers'
+    stage accumulators) asks this, as the reference's writers do."""
+    return True
+
+
 def histograms() -> "dict[str, dict]":
-    """{histogram: {"count", "sum_s"}} of every observation so far."""
+    """{series: {"count", "sum_s"}} of every observation so far; a
+    labelled series is keyed ``name{label="value"}``."""
     with _lock:
         return {k: {"count": c, "sum_s": s} for k, (c, s) in _hist.items()}

@@ -241,3 +241,77 @@ def test_chunkstore_backup_restore_gc_on_port_index(tmp_path):
     assert port_run[2] == ref_run[2]            # the same chunk files
     assert isinstance(port_run[3].index, port_ci.DedupIndex)
     assert port_run[4] == ref_run[4] and ref_run[4]["hits"] > 0
+
+
+def test_chunkstore_on_port_dist_index_client(tmp_path):
+    """A JAX ChunkStore whose index is the port's DistIndexClient over two
+    port shard nodes (the route a host without jax has to the distributed
+    index) holds the same chunk files and verdicts, through two backups by
+    a JAX pipelined SessionWriter into the port's collector, as the same
+    store on the JAX client, nodes and collector; both read back."""
+    from pbs_plus_tpu.chunker import ChunkerParams
+    from pbs_plus_tpu.parallel import dist_index as ref_di
+    from pbs_plus_tpu.pxar import ingestbatch as ref_ib
+    from pbs_plus_tpu.pxar.datastore import ChunkStore
+    from pbs_plus_tpu.pxar.format import KIND_FILE, Entry
+    from pbs_plus_tpu.pxar.transfer import SessionWriter
+    from pbs_plus_tpu_torch.parallel import dist_index as port_di
+    from pbs_plus_tpu_torch.pxar import ingestbatch as port_ib
+
+    params = ChunkerParams(avg_size=1024)
+    rng = np.random.default_rng(19)
+    first = rng.integers(0, 256, 60_000, dtype=np.uint8)
+    second = first.copy()
+    second[20_000:20_400] ^= 0x3C                     # one edit
+    files = [first.tobytes(), second.tobytes()]
+    absent = _digests(64, seed=20)
+
+    def run(pkg):
+        di = ref_di if pkg == "ref" else port_di
+        nodes = []
+        for sid in ("s0", "s1"):
+            idx = (ref_ci.DedupIndex(budget_mb=1) if pkg == "ref"
+                   else port_ci.DedupIndex(budget_mb=1, device="cpu"))
+            idx.mark_booted()
+            nodes.append(di.IndexShardServer(sid, idx, token="t"))
+            nodes[-1].start()
+        cli = None
+        try:
+            m = di.ShardMap([(n.shard_id, n.endpoint) for n in nodes], epoch=1)
+            for n in nodes:
+                n.install_map(m)
+            cli = di.DistIndexClient(m, token="t")
+            store = ChunkStore(str(tmp_path / pkg), index=cli)
+            coll = (ref_ib.IngestCollector(store, max_wait=0.01) if pkg == "ref"
+                    else port_ib.IngestCollector(store, device="cpu",
+                                                 max_wait=0.01))
+            flushes = port_ib.metrics_snapshot()["flushes"]
+            out = []
+            for data in files:
+                w = SessionWriter(store, payload_params=params,
+                                  pipeline_workers=2, ingest_collector=coll)
+                w.write_entry_reader(Entry(path="f", kind=KIND_FILE,
+                                           size=len(data)), io.BytesIO(data))
+                _, pidx, stats = w.finish()
+                digs = [pidx.digest(i) for i in range(len(pidx))]
+                assert b"".join(store.get(d) for d in digs) == data
+                out.append((digs, stats.new_chunks, stats.known_chunks))
+            assert (port_ib.metrics_snapshot()["flushes"] > flushes) \
+                == (pkg == "port")
+            probe = [d for digs, _, _ in out for d in digs] + absent
+            chunk_files = {}
+            for d in store.iter_digests():
+                with open(store._path(d), "rb") as fh:
+                    chunk_files[d] = fh.read()
+            return out, cli.probe_batch(probe), chunk_files, type(cli)
+        finally:
+            if cli is not None:
+                cli.close()
+            for n in nodes:
+                n.stop()
+
+    ref, port = run("ref"), run("port")
+    assert port[0] == ref[0] and ref[0][1][2] > 0      # backup #2 dedups
+    assert port[1] == ref[1] and not any(ref[1][-64:])
+    assert port[2] == ref[2] and len(ref[2]) > 60
+    assert port[3] is port_di.DistIndexClient

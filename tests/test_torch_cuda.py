@@ -8,6 +8,7 @@ Tolerance is exact: every value is an integer.
 """
 
 import hashlib
+import threading
 
 import numpy as np
 import pytest
@@ -145,6 +146,84 @@ def test_ingest_scan_and_digest_on_card_match_plain(cuda):
     chunks = [r[0][:n] for r, n in zip(rows, (10, 63, 64, 200, 999, 4097, 0))]
     assert ingest.digest_chunks(chunks, device=cuda) == \
         [hashlib.sha256(c).digest() for c in chunks]
+
+
+class _DictStore:
+    """A thread-safe in-memory store with a declared batched probe."""
+
+    thread_safe = True
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.chunks = {}
+
+    def ingest_capabilities(self):
+        from pbs_plus_tpu_torch.pxar.ingestbackend import IngestCapabilities
+        return IngestCapabilities(probe=True, presketch=False)
+
+    def probe_batch(self, digests):
+        with self.lock:
+            return [d in self.chunks for d in digests]
+
+    def insert(self, digest, chunk, *, verify=True):
+        with self.lock:
+            new = digest not in self.chunks
+            self.chunks[digest] = len(chunk)
+            return new
+
+    def note_dedup_hit(self, digest):
+        return True
+
+    def touch(self, digest):
+        pass
+
+
+def test_fused_ingest_collector_on_card_matches_cpu(cuda):
+    """Two sessions in threads through the port's collector on the card
+    == the same on the CPU; one K1 launch per scanning flush, K2 per
+    flush that cuts; flusher threads leave the current device at 0."""
+    from pbs_plus_tpu_torch.ops import ingest
+    from pbs_plus_tpu_torch.pxar.ingestbatch import (FusedIngestStream,
+                                                     IngestCollector)
+    payloads = [_bytes(n, 50 + n).tobytes() for n in (200_000, 150_001)]
+    shared = payloads[0][:40_000]
+
+    def run(device):
+        store = _DictStore()
+        coll = IngestCollector(store, device=device, max_wait=0.05)
+        out, devs = [None, None], []
+
+        def one(k):
+            s = FusedIngestStream(store, TEST_PARAMS, coll)
+            data = shared + payloads[k]
+            for off in range(0, len(data), 64 << 10):
+                s.write(data[off:off + (64 << 10)])
+            out[k] = (s.finish(), s.stats.new_chunks + s.stats.known_chunks)
+            devs.append(torch.cuda.current_device())
+
+        threads = [threading.Thread(target=one, args=(k,)) for k in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        assert not any(t.is_alive() for t in threads) and None not in out
+        return out, set(store.chunks), devs
+
+    k1, k2 = rolling_hash.KERNEL.launches, sha256.KERNEL.launches
+    scans = ingest.stats["scan_dispatches"]
+    got, got_store, devs = run(cuda)
+    assert rolling_hash.KERNEL.launches - k1 == \
+        ingest.stats["scan_dispatches"] - scans > 0
+    assert sha256.KERNEL.launches > k2
+    assert devs == [0, 0]
+    want, want_store, _ = run("cpu")
+    assert got == want and got_store == want_store
+    for k, (records, _) in enumerate(got):
+        data, s = shared + payloads[k], 0
+        for end, digest in records:
+            assert digest == hashlib.sha256(data[s:end]).digest()
+            s = end
+        assert s == len(data)
 
 
 def test_similarity_ops_on_card_match_host_twins(cuda):

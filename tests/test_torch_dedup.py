@@ -28,7 +28,8 @@ from pbs_plus_tpu_torch.ops import (fingerprint, ingest, rolling_hash, sha256,
                                     similarity)
 from pbs_plus_tpu_torch import parallel
 from pbs_plus_tpu_torch.parallel import dist_index
-from pbs_plus_tpu_torch.pxar import DedupIndex, SimilarityIndex
+from pbs_plus_tpu_torch.pxar import (DedupIndex, IngestCollector, SimilarityIndex,
+                                     collector_for)
 from pbs_plus_tpu_torch.sidecar import DedupService, serve_sidecar
 from pbs_plus_tpu_torch.utils.device import CudaUnavailableError
 
@@ -177,7 +178,8 @@ assert svc.get_stats({})["use_tpu"] is False
 import tempfile
 from pbs_plus_tpu_torch.parallel import (DistIndexClient, IndexShardServer,
                                          ShardMap)
-from pbs_plus_tpu_torch.pxar import DedupIndex, SimilarityIndex
+from pbs_plus_tpu_torch.pxar import (DedupIndex, IngestCollector, SimilarityIndex,
+                                     collector_for)
 with tempfile.TemporaryDirectory() as tmp:
     idx = DedupIndex(budget_mb=1, spill_dir=tmp, resident_mb=1, device="cpu")
     digs = [hashlib.sha256(b"%d" % i).digest() for i in range(3000)]
@@ -205,6 +207,26 @@ with tempfile.TemporaryDirectory() as tmp:
 from pbs_plus_tpu_torch.parallel import dryrun_multichip
 assert dryrun_multichip(2, device="cpu")["hits"] == 1
 
+# the fused-ingest collector and its sequential writer
+from pbs_plus_tpu_torch.pxar import FusedIngestStream, collector_for
+
+class _Store:
+    def __init__(self):
+        self.chunks = {}
+
+    def insert(self, digest, chunk, verify=True):
+        new = digest not in self.chunks
+        self.chunks[digest] = bytes(chunk)
+        return new
+
+store = _Store()
+fused = FusedIngestStream(store, TEST_PARAMS, collector_for(store, device="cpu"))
+fused.write(data)
+recs = fused.finish()
+assert recs[-1][0] == len(data) and recs[0][1] == hashlib.sha256(
+    data[:recs[0][0]]).digest()
+assert set(store.chunks) == {d for _, d in recs}
+
 bad = [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
 assert not bad, bad
 print(len(mods))
@@ -215,7 +237,7 @@ def test_port_imports_without_jax_or_reference():
     r = subprocess.run([sys.executable, "-c", _GATE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 42
+    assert int(r.stdout.split()[-1]) >= 46
 
 
 def test_cuda_request_raises_without_card(tmp_path):
@@ -253,6 +275,8 @@ def test_cuda_request_raises_without_card(tmp_path):
                 device="cuda")),
             lambda: parallel.make_mesh(),
             lambda: parallel.make_seq_mesh(2),
-            lambda: parallel.dryrun_multichip(2)):
+            lambda: parallel.dryrun_multichip(2),
+            lambda: IngestCollector(object()),
+            lambda: collector_for(object())):
         with pytest.raises(CudaUnavailableError):
             call()
