@@ -32,6 +32,22 @@ runs one phase per line:
               path's cuts and hashlib, new + known == chunks, one K1
               launch per scanning flush, K2 and K3 launched; the flush
               counters and the ingest stage seconds
+   store      the same streams as backups through two LocalStores on the
+              card at the production defaults, a tpxd datastore (streams
+              0-3) and a pbs_format one (streams 4-7): each stream a group
+              of files cut at log-uniform sizes of 4 KiB-64 MiB, one
+              session per group, all at once; backup #1, then backup #2 of
+              the rewritten streams over the previous snapshot; MiB/s,
+              new/known chunks, K1/K2/K3 launches, bytes on disk, the zstd
+              backend and the free disk; every file read back through
+              SplitReader, every stored chunk re-hashed by hashlib, the
+              verdicts held against the indexes
+   verification the verification job (run_verification, sample rate 1.0)
+              on each store: whole files through K2 (tpxd) or chunks in
+              64 MiB batches (pbs), against hashlib's time and K2's bound;
+              then one flipped byte in a payload chunk file, reported as
+              chunk:<hex> (pbs) or raised as OSError (tpxd, as the JAX
+              package's job does)
 7. sidecar    the route an unmodified backup server takes: DedupService on
               the card, 8 client threads streaming the 8 streams through
               Chunk in 4 MiB pages, InsertIndex of backup #1, backup #2
@@ -91,9 +107,12 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -123,6 +142,8 @@ CS_SAMPLE = 32            # content sketches held against numpy on these
 FP_SAMPLE = 16            # fold fingerprints held against numpy on these
 VERIFY_SNAPSHOT_CHUNKS = 48   # chunks behind the snapshot reader
 INGEST_WINDOW = 32 << 20  # each stream's window in the fused-ingest batch
+STORE_FILE_MIN = 4 << 10  # the store phase's files: log-uniform sizes
+STORE_FILE_MAX = 64 << 20
 # the index tier at a server's defaults (PBS_PLUS_DEDUP_INDEX_MB=64,
 # PBS_PLUS_DEDUP_RESIDENT_MB=256): 4 Mi digests are a 16 TiB datastore of
 # 4 MiB chunks, a filter load of 0.5, and spill the 112 B/entry memtable
@@ -497,6 +518,297 @@ def fused_ingest_phase(dev, P, streams: dict, ref_bounds: dict,
             "metrics": m, "launches": launches, "stage_seconds": stages,
             "sha_share_of_stages": stages["sha"]["sum_s"] / work_s
             if work_s else None}
+
+
+class SliceReader:
+    """A file of a backup: sequential reads over ``a[start:end]``, each
+    read one copy of its bytes (as a read of a file is)."""
+
+    def __init__(self, a: np.ndarray, start: int, end: int):
+        self.a, self.pos, self.end = a, start, end
+
+    def read(self, n: int = -1) -> bytes:
+        if n < 0:
+            n = self.end - self.pos
+        out = self.a[self.pos:min(self.end, self.pos + n)].tobytes()
+        self.pos += len(out)
+        return out
+
+
+def store_files(n: int, seed: int) -> list[tuple[int, int]]:
+    """A stream of ``n`` bytes cut into files of log-uniform sizes in
+    [STORE_FILE_MIN, STORE_FILE_MAX] (the last one shorter)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = np.log(STORE_FILE_MIN), np.log(STORE_FILE_MAX)
+    bounds, off = [], 0
+    while off < n:
+        size = int(np.exp(rng.uniform(lo, hi)))
+        bounds.append((off, min(n, off + size)))
+        off += size
+    return bounds
+
+
+def dir_bytes(path: str) -> int:
+    total = 0
+    for dp, _dn, fn in os.walk(path):
+        total += sum(os.path.getsize(os.path.join(dp, f)) for f in fn)
+    return total
+
+
+def store_phase(dev, P, streams: dict, seed: int, root: str) -> tuple[dict, dict]:
+    """The 8 streams as backups through two port ``LocalStore``s on the
+    card at the production defaults: the native ``tpxd`` datastore takes
+    streams 0-3, a ``pbs_format=True`` one streams 4-7.  Each stream is
+    one group ``host/<name>``, a tree of files cut from it at log-uniform
+    sizes, written by one session per group, all of a store's groups at
+    once.  Backup #1, then backup #2 of the rewritten streams with the
+    previous snapshot picked automatically.  Every file is read back
+    through the port's ``SplitReader``, every stored chunk re-hashed by
+    hashlib, and the new/known verdicts held against the snapshots'
+    indexes.  Returns the phase line and the stores for the verification
+    phase."""
+    from pbs_plus_tpu_torch.ops import cuckoo, rolling_hash, sha256
+    from pbs_plus_tpu_torch.pxar import datastore as port_ds
+    from pbs_plus_tpu_torch.pxar.backupproxy import LocalStore
+    from pbs_plus_tpu_torch.pxar.format import KIND_DIR, KIND_FILE, Entry
+    from pbs_plus_tpu_torch.pxar.transfer import SplitReader
+
+    names = sorted(streams)
+    free = shutil.disk_usage(root).free
+    files = {n: store_files(STREAM_BYTES, seed + 100 + k)
+             for k, n in enumerate(names)}
+    streams2 = rewrite(streams, seed)
+    half = len(names) // 2
+    layout = {"tpxd": names[:half], "pbs": names[half:]}
+    out = {"phase": "store", "free_disk_bytes_before": free,
+           "zstd_backend": port_ds.zstandard.__name__,
+           "params": [P.avg_size, P.min_size, P.max_size],
+           "files": {n: len(files[n]) for n in names},
+           "largest_file": max(e - s for n in names for s, e in files[n]),
+           "stores": {}}
+    stores = {}
+    for kind, groups in layout.items():
+        base = os.path.join(root, kind)
+        ls = LocalStore(base, P, pbs_format=kind == "pbs", device=dev)
+        ds = ls.datastore
+        runs, seen = [], set()
+        for b, strs in enumerate((streams, streams2)):
+            mans, errs = {}, []
+            barrier = threading.Barrier(len(groups))
+
+            def session(name, strs=strs, b=b, mans=mans, errs=errs,
+                        barrier=barrier):
+                try:
+                    barrier.wait()
+                    sess = ls.start_session(backup_type="host",
+                                            backup_id=name,
+                                            backup_time=1_700_000_000 + 3600 * b)
+                    w = sess.writer
+                    w.write_entry(Entry(path="", kind=KIND_DIR, mode=0o40755))
+                    w.write_entry(Entry(path="d", kind=KIND_DIR, mode=0o40755))
+                    a = strs[name]
+                    for i, (s, e) in enumerate(files[name]):
+                        w.write_entry_reader(
+                            Entry(path=f"d/f{i:05d}", kind=KIND_FILE,
+                                  mode=0o100644, size=e - s),
+                            SliceReader(a, s, e))
+                    mans[name] = sess.finish()
+                except BaseException as e:     # surfaced by the check below
+                    errs.append(repr(e))
+
+            rolling_hash.KERNEL.launches = 0
+            sha256.KERNEL.launches = 0
+            cuckoo.stats["device_probes"] = 0
+            threads = [threading.Thread(target=session, args=(n,))
+                       for n in groups]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(900)
+            secs = time.perf_counter() - t0
+            launches = {"candidate_mask": rolling_hash.KERNEL.launches,
+                        "sha256_chunks": sha256.KERNEL.launches,
+                        "cuckoo_probe": cuckoo.stats["device_probes"]}
+            check(not errs and not any(t.is_alive() for t in threads),
+                  f"{kind} backup #{b + 1} sessions failed: {errs}")
+            check(all(v > 0 for v in launches.values()),
+                  f"a kernel of the {kind} store path did not launch: {launches}")
+            check(all(mans[n]["previous"] == (
+                f"host/{n}/{port_ds.format_backup_time(1_700_000_000)}"
+                if b else None) for n in groups),
+                f"{kind} backup #{b + 1} previous snapshots: "
+                f"{[mans[n]['previous'] for n in groups]}")
+            # each distinct digest of this backup's indexes is new exactly
+            # once, unless an earlier backup of the store holds it
+            digs = set()
+            for n in groups:
+                ref = ds.last_snapshot("host", n)
+                for idx in ds.load_indexes(ref):
+                    digs.update(idx.digest(i) for i in range(len(idx)))
+            new = sum(mans[n]["stats"]["new_chunks"] for n in groups)
+            known = sum(mans[n]["stats"]["known_chunks"] for n in groups)
+            chunks = sum(mans[n]["meta_chunks"] + mans[n]["payload_chunks"]
+                         for n in groups)
+            check(new == len(digs - seen) and new + known == chunks,
+                  f"{kind} backup #{b + 1}: new {new}, known {known}, "
+                  f"chunks {chunks}, novel digests {len(digs - seen)}")
+            if b:
+                check(known > 0 and new < chunks // 2,
+                      f"{kind} backup #2 did not find the unchanged chunks "
+                      f"known: new {new}, known {known}")
+            seen |= digs
+            nbytes = len(groups) * STREAM_BYTES
+            runs.append({"seconds": secs, "mib_s": nbytes / 2**20 / secs,
+                         "new_chunks": new, "known_chunks": known,
+                         "chunks": chunks, "launches": launches,
+                         "bytes_on_disk": dir_bytes(base),
+                         "chunk_bytes_on_disk": dir_bytes(ds.chunks.base)})
+        # every file of both backups reads back through the SplitReader
+        t0 = time.perf_counter()
+        read = 0
+        for b, strs in enumerate((streams, streams2)):
+            for n in groups:
+                ref = [r for r in ds.list_snapshots("host", n)][b]
+                rd = SplitReader.open_snapshot(ds, ref)
+                ents = [e for e in rd.entries() if e.is_file]
+                check([e.path for e in ents] ==
+                      [f"d/f{i:05d}" for i in range(len(files[n]))],
+                      f"{kind} {ref}: entries")
+                a = strs[n]
+                for e, (s, t) in zip(ents, files[n]):
+                    got = rd.read_file(e)
+                    check(e.size == t - s and np.array_equal(
+                        np.frombuffer(got, np.uint8), a[s:t]),
+                        f"{kind} {ref} {e.path} does not read back")
+                    read += len(got)
+        read_s = time.perf_counter() - t0
+        # every stored chunk, decompressed, hashes to its name
+        stored = list(ds.chunks.iter_digests())
+
+        def rehash(d):
+            return hashlib.sha256(ds.chunks.get(d)).digest() == d
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            ok = list(pool.map(rehash, stored))
+        check(all(ok) and set(stored) == seen,
+              f"{kind}: stored chunks != hashlib or != the indexes' digests")
+        out["stores"][kind] = {"groups": groups, "backups": runs,
+                               "read_back_bytes": read, "read_back_s": read_s,
+                               "stored_chunks": len(stored),
+                               "rehash_s": time.perf_counter() - t0}
+        stores[kind] = SimpleNamespace(store=ls, groups=groups,
+                                       streams=(streams, streams2),
+                                       files=files)
+    return out, stores
+
+
+def k2_chain_ms(length: int, clock_hz: float) -> float:
+    """One message's K2 chain at the per-round floor: its 64-byte blocks
+    (padding included) x 64 rounds x K2_ROUND_FLOOR_CYCLES."""
+    return ((length + 8) // 64 + 1) * 64 * K2_ROUND_FLOOR_CYCLES / clock_hz * 1e3
+
+
+def verification_phase(dev, stores: dict, clock_hz: float) -> dict:
+    """The port's verification job over each store at a sample rate of 1.0
+    on a minimal server shell: whole files re-hashed by K2 in the tpxd
+    store (its entries carry file digests), chunks in 64 MiB batches in
+    the pbs one; then one byte flipped in one payload chunk file of each."""
+    import asyncio
+    from pbs_plus_tpu_torch.ops import sha256
+    from pbs_plus_tpu_torch.pxar.transfer import SplitReader
+    from pbs_plus_tpu_torch.server.verification_job import (pick_snapshots,
+                                                            run_verification)
+
+    out = {"phase": "verification", "stores": {}}
+    for kind, st in stores.items():
+        ds = st.store.datastore
+        srv = SimpleNamespace(config=SimpleNamespace(verify_workers=0),
+                              datastore=SimpleNamespace(datastore=ds))
+        v = {"id": "v-chip", "sample_rate": 1.0}
+        picked = pick_snapshots(srv)
+        sha256.KERNEL.launches = 0
+        rep, secs = timed(lambda: asyncio.run(
+            run_verification(srv, v, device=dev)))
+        launches = sha256.KERNEL.launches
+        check(rep["snapshots"] == [str(r) for r in picked]
+              and rep["corrupt"] == [] and rep["drift"] == [],
+              f"{kind} verification report: {rep}")
+        check(launches > 0, f"K2 did not launch on the {kind} verification")
+        # what the job hashed, and hashlib's time over the same bytes
+        items = []
+        if kind == "tpxd":
+            for ref in picked:
+                b = 0 if ref.backup_time == ds.list_snapshots(
+                    "host", ref.backup_id)[0].backup_time else 1
+                a = st.streams[b][ref.backup_id]
+                items += [a[s:e] for s, e in st.files[ref.backup_id]
+                          if e > s]
+            lens = [len(x) for x in items]
+            bound_ms = k2_chain_ms(max(lens), clock_hz)
+            flushes = 1
+        else:
+            # the job's K2 batches: per snapshot, its distinct chunks in
+            # waves of 8, flushed once 64 MiB are pending and at the end
+            flushes, bound_ms = 0, 0.0
+            for ref in picked:
+                digs = []
+                for idx in ds.load_indexes(ref):
+                    digs += [idx.digest(i) for i in range(len(idx))]
+                digs = list(dict.fromkeys(digs))
+                pending, longest = 0, 0
+                for w in range(0, len(digs), 8):
+                    for d in digs[w:w + 8]:
+                        items.append(ds.chunks.get(d))
+                        pending += len(items[-1])
+                        longest = max(longest, len(items[-1]))
+                    if pending >= 64 << 20 or w + 8 >= len(digs):
+                        flushes += 1
+                        bound_ms += k2_chain_ms(longest, clock_hz)
+                        pending = longest = 0
+            lens = [len(x) for x in items]
+        check(rep["checked"] == len(items),
+              f"{kind} verification checked {rep['checked']}, want {len(items)}")
+        t0 = time.perf_counter()
+        for x in items:
+            hashlib.sha256(x).digest()
+        hashlib_s = time.perf_counter() - t0
+        del items
+        # one byte flipped in the middle of one payload chunk file of the
+        # first picked snapshot
+        ref = picked[0]
+        pidx = ds.load_indexes(ref)[1]
+        d = pidx.digest(len(pidx) // 2)
+        with open(ds.chunks._path(d), "r+b") as f:
+            raw = bytearray(f.read())
+            raw[len(raw) // 2] ^= 0x40
+            f.seek(0)
+            f.write(raw)
+        if kind == "pbs":
+            rep2 = asyncio.run(run_verification(srv, v, device=dev))
+            hit = [c for c in rep2["corrupt"] if c["snapshot"] == str(ref)]
+            check(len(hit) == 1 and f"chunk:{d.hex()}" in hit[0]["files"],
+                  f"pbs verification missed the flipped chunk: {rep2['corrupt']}")
+            flipped = {"reported": hit[0]["files"]}
+        else:
+            # the reference's file-level path raises out of read_file
+            try:
+                asyncio.run(run_verification(srv, v, device=dev))
+                raised = None
+            except OSError as e:
+                raised = str(e)
+            check(raised is not None and "corrupt on disk" in raised
+                  and d.hex() in raised,
+                  f"tpxd verification did not raise on the flipped chunk: {raised}")
+            flipped = {"raised": raised}
+        out["stores"][kind] = {
+            "snapshots": rep["snapshots"], "checked": rep["checked"],
+            "bytes": sum(lens), "longest": max(lens), "seconds": secs,
+            "hashlib_s": hashlib_s, "k2_launches": launches,
+            "k2_flushes": flushes, "k2_bound_ms": bound_ms,
+            "flipped_chunk": d.hex(), **flipped}
+    return out
 
 
 def index_phase(dev, seed: int) -> dict:
@@ -1555,6 +1867,24 @@ def main() -> int:
                                gib / stream_s)
     emit(fused)
 
+    # the same streams as backups through two LocalStores, then the
+    # verification job over both; the stores live on local disk under the
+    # checkout and go at the end of the phase, also when a check fails
+    os.makedirs(SCRATCH, exist_ok=True)
+    store_root = tempfile.mkdtemp(prefix="store-", dir=SCRATCH)
+    try:
+        store_line, stores = store_phase(dev, P, streams, args.seed, store_root)
+        emit(store_line)
+        ver_line = verification_phase(dev, stores, clock_hz)
+        emit(ver_line)
+        del stores
+    finally:
+        shutil.rmtree(store_root, ignore_errors=True)
+    store_launches = {k: sum(r["launches"][k] for st in store_line["stores"].values()
+                             for r in st["backups"])
+                      for k in ("candidate_mask", "sha256_chunks", "cuckoo_probe")}
+    ver_launches = sum(st["k2_launches"] for st in ver_line["stores"].values())
+
     # 7. the sidecar route -----------------------------------------------------
     # the route an unmodified server takes (job rows with chunker =
     # "sidecar:<host:port>"): the service on the card, the index preloaded
@@ -1932,6 +2262,16 @@ def main() -> int:
     ham_ms = cuda_ms(lambda: similarity.pairwise_hamming(ska, skb), 3)
     ham_corner_ms = cuda_ms(lambda: similarity.pairwise_hamming(
         ska[:SIM_CORNER], skb[:SIM_CORNER]), 5)
+    # the library's one call for the same distances: torch.cdist with p=0
+    # (the count of differing coordinates) over the sketches' unpacked bits
+    shifts = torch.arange(32, device=dev)
+    bits_a = ((ska[:, :, None] >> shifts) & 1).reshape(len(ska), -1).float()
+    bits_b = ((skb[:, :, None] >> shifts) & 1).reshape(len(skb), -1).float()
+    check(torch.equal(torch.cdist(bits_a, bits_b, p=0).to(torch.int64),
+                      similarity.pairwise_hamming(ska, skb).to(torch.int64)),
+          "torch.cdist(p=0) on the unpacked bits != pairwise_hamming")
+    ham_lib_ms = cuda_ms(lambda: torch.cdist(bits_a, bits_b, p=0), 3)
+    del bits_a, bits_b
     # both [10k, 2] word inputs read once, the [10k, 10k] int32 matrix written
     ham_bound = bound(4 * (2 * 2 * SIM_DIGESTS + SIM_DIGESTS ** 2),
                       HAMMING_OPS * 2 * SIM_DIGESTS ** 2, int32_ops_per_s)
@@ -1991,6 +2331,7 @@ def main() -> int:
          "ms": k3_ms, "plain_ms": k3_ms, "bound_ms": k3_bound,
          "bound_by": "bytes", "library_ms": k3_ms,
          "fused_ingest_launches": fused["launches"]["cuckoo_probe"],
+         "store_launches": store_launches["cuckoo_probe"],
          "index": {"launches": ix["k3_launches"],
                    "table_bytes": INDEX_BUDGET_MB << 20,
                    "batch_ms": ix["k3_ms"],
@@ -2005,7 +2346,10 @@ def main() -> int:
                sim_launches["pairwise_hamming"], ham_ms, ham_plain_ms, ham_bound,
                shape=[SIM_DIGESTS, SIM_DIGESTS, 2],
                plain_shape=f"{SIM_CORNER} x {SIM_CORNER} corner, "
-                           f"torch {ham_corner_ms} ms there"),
+                           f"torch {ham_corner_ms} ms there",
+               library_ms=ham_lib_ms,
+               library_call="torch.cdist(p=0) on the [10k, 64] unpacked "
+                            "bits, float32"),
         op_row("content_sketch", sim_src, "pbs_plus_tpu/ops/similarity.py:255",
                sim_launches["content_sketch"], cs_ms, cs_plain_ms, cs_bound,
                shape=f"{len(step_chunks)} chunks, {step_bytes} bytes",
@@ -2068,7 +2412,8 @@ def main() -> int:
              "parallel_step": par_nums["step"]["launches"]["candidate_mask"],
              "sequence_parallel": par_nums["sp"]["launches"],
              "fan_in": par_nums["fan_in"]["k1"],
-             "fused_ingest": fused["launches"]["candidate_mask"]},
+             "fused_ingest": fused["launches"]["candidate_mask"],
+             "store": store_launches["candidate_mask"]},
          "max_abs_err": int(k1_err > 0),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": "bytes" if k1_bound_bytes >= k1_bound_ops else "operations",
@@ -2081,7 +2426,9 @@ def main() -> int:
              "main": main_launches["sha256_chunks"],
              "parallel_step": par_nums["step"]["launches"]["sha256_chunks"],
              "fan_in": par_nums["fan_in"]["k2"],
-             "fused_ingest": fused["launches"]["sha256_chunks"]},
+             "fused_ingest": fused["launches"]["sha256_chunks"],
+             "store": store_launches["sha256_chunks"],
+             "verification": ver_launches},
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "plain_shape": f"size list {SHA_SIZES}, kernel {k2_small_ms} ms there",

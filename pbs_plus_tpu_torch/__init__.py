@@ -29,6 +29,13 @@ kernel's plain PyTorch version.
   the distributed index's service half (ShardMap, IndexShardServer,
   DistIndexClient) on the JAX package's HTTP wire; ``python -m
   pbs_plus_tpu_torch index-shard`` runs one shard node.
+- pxar (the store): LocalStore (backups on K1, K2 and K3 on its device),
+  SplitReader, ChunkStore/Datastore, copies of the JAX package's with
+  byte-identical snapshots.
+- server: the verification job (``run_verification``,
+  ``enqueue_verification``; K2 re-hashes stored snapshots), with copies
+  of the job record, the aRPC call layer (``arpc``) and the task UPID
+  (``proxmox``) it uses.
 - convert: index and chunker state carried across from the JAX package.
 """
 
@@ -47,8 +54,10 @@ from .models import (ChunkRecord, CudaChunker, DedupConfig, DedupPipeline,
                      VerifyPipeline, VerifyResult, get_feeder,
                      make_batch_hasher, make_chunker_factory)
 from .sidecar import DedupService, SidecarClient, serve_sidecar
-from .pxar import (DedupIndex, DigestLog, FusedIngestStream, IngestCollector,
-                   SimilarityIndex, collector_for)
+from .pxar import (ChunkStore, Datastore, DedupIndex, DigestLog,
+                   FusedIngestStream, IngestCollector, LocalStore,
+                   SimilarityIndex, SplitReader, collector_for)
+from .server.verification_job import enqueue_verification, run_verification
 from .parallel import (DistIndexClient, IndexShardServer, ShardedCuckooIndex,
                        ShardMap, make_mesh, make_seq_mesh,
                        multichip_dedup_step, sp_chunk_stream)
@@ -73,6 +82,8 @@ __all__ = [
     "DedupService", "serve_sidecar", "SidecarClient",
     "DedupIndex", "DigestLog", "SimilarityIndex",
     "IngestCollector", "FusedIngestStream", "collector_for",
+    "LocalStore", "ChunkStore", "Datastore", "SplitReader",
+    "run_verification", "enqueue_verification",
     "DistIndexClient", "IndexShardServer", "ShardMap",
     "make_mesh", "make_seq_mesh", "multichip_dedup_step", "sp_chunk_stream",
     "ShardedCuckooIndex",

@@ -1,4 +1,5 @@
-"""The store's dedup-index tier and the fused-ingest write path of the port.
+"""The snapshot store of the port: its dedup-index tier, its fused-ingest
+write path, and the store itself.
 
 - chunkindex: ``DedupIndex``, the membership front a JAX ``ChunkStore``
   takes as ``index=``; K3 on the card, or the numpy twin on the CPU.
@@ -10,15 +11,26 @@
   batching domain (one K1 launch and one K2 batch per flush across every
   concurrent writer), ``FusedIngestStream``, the sequential writer that
   deposits there, and ``collector_for``, one collector per store.
-- transfer, ingestbackend, pipeline: copies of the JAX package's
-  jax-free stream writer (``_ChunkedStream``, the staged writer),
-  declared-capability seam and store lock that the collector needs.
+- backupproxy, transfer, datastore: the snapshot store (copies of the
+  JAX package's): ``LocalStore(device=)`` and its sessions, whose
+  writers (``SessionWriter``, ``DedupWriter``) cut with K1, digest with
+  K2 and probe the store's ``DedupIndex`` (K3) on the store's device;
+  ``SplitReader``; ``ChunkStore``/``Datastore`` in the native and the
+  stock-PBS layouts.  Snapshots are byte-identical to the JAX package's.
+- chunkcache, format, pxarv2, pbsformat, deltablob, pipeline,
+  ingestbackend: copies of the read cache, the entry codecs, the PBS
+  formats, delta blobs, the pipelined writer and the declared-capability
+  seam the store needs.
 """
 
+from .backupproxy import LocalStore
 from .chunkindex import DedupIndex
+from .datastore import ChunkStore, Datastore
 from .digestlog import DigestLog
 from .ingestbatch import FusedIngestStream, IngestCollector, collector_for
 from .similarityindex import SimilarityIndex
+from .transfer import SplitReader
 
 __all__ = ["DedupIndex", "DigestLog", "SimilarityIndex", "IngestCollector",
-           "FusedIngestStream", "collector_for"]
+           "FusedIngestStream", "collector_for", "LocalStore", "ChunkStore",
+           "Datastore", "SplitReader"]

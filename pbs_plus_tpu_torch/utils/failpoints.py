@@ -1,8 +1,9 @@
 """Deterministic fault injection: named failpoint sites of the port.
 
 A copy of the part of the JAX package's ``utils/failpoints.py`` that the
-index tier and its tests use: code marks a site with
-``failpoints.hit("layer.site")``, and a test arms it to raise::
+index tier, the store and its tests use: code marks a site with
+``failpoints.hit("layer.site")`` (``await failpoints.ahit(...)`` in
+coroutines), and a test arms it to raise::
 
     with failpoints.armed("pbsstore.digestlog.compact", "raise") as fp:
         ...
@@ -58,15 +59,23 @@ def armed(site: str, action: str = "raise") -> Iterator[Failpoint]:
             _armed.pop(site, None)
 
 
-def hit(site: str) -> None:
-    """Raise ``FailpointError`` when ``site`` is armed."""
+def hit(site: str, data=None):
+    """Raise ``FailpointError`` when ``site`` is armed, else return
+    ``data`` (sites on a data path pass their bytes through, as the
+    reference's do)."""
     # lock-free truthiness probe: disarmed sites cost one dict check
     if not _armed:
-        return
+        return data
     with _lock:
         fp = _armed.get(site)
         if fp is None:
-            return
+            return data
         fp.fires += 1
     L.warning("failpoint firing: %s fire=%d", site, fp.fires)
     raise FailpointError(f"failpoint {site}: injected fault (fire #{fp.fires})")
+
+
+async def ahit(site: str, data=None):
+    """``hit`` for coroutines: returns ``data`` when ``site`` is not
+    armed, else raises ``FailpointError``."""
+    return hit(site, data)

@@ -1,15 +1,16 @@
 """Histogram observations of the port.
 
 A copy of the part of the JAX package's ``utils/trace.py`` that the index
-tier and the ingest writers call: ``span`` (a timed block), ``emit`` (a
-pre-measured one), ``record`` (a histogram-only observation for hot
-sites) and ``enabled``, over a closed registry of names (``SPANS``).  The
-reference feeds its histograms to the server's metrics module; the port
-has no server, so they accumulate here (``histograms()``) and nothing of
-the JAX package is imported.  The reference's span ring, context
-propagation and bench-only kill switch have no caller in the port and are
-not copied: tracing is always on, and span attributes are accepted and
-dropped.
+tier, the ingest writers, the chunk cache and the aRPC mux call: ``span``
+(a timed block), ``emit`` (a pre-measured one), ``record`` (a
+histogram-only observation for hot sites) and ``enabled``, over a closed
+registry of names (``SPANS``).  The reference feeds its histograms to the
+server's metrics module; the port has no server, so they accumulate here
+(``histograms()``) and nothing of the JAX package is imported.  The
+reference's span ring, context propagation and bench-only kill switch
+are not copied: tracing is always on, span attributes are accepted and
+dropped, and ``capture``/``attached``/``headers_out`` keep the
+reference's call shapes with no context to carry.
 """
 
 from __future__ import annotations
@@ -27,8 +28,12 @@ SPANS = {
     "ingest.probe": ("pbs_plus_ingest_stage_seconds", {"stage": "probe"}),
     "ingest.presketch": ("pbs_plus_ingest_stage_seconds",
                          {"stage": "presketch"}),
+    # read path (pxar/chunkcache.py)
+    "chunkcache.fetch": ("pbs_plus_chunk_cache_fetch_seconds", None),
     # spillable exact-confirm tier (pxar/digestlog.py)
     "digestlog.confirm": ("pbs_plus_digestlog_confirm_read_seconds", None),
+    # rpc layer (arpc/mux.py)
+    "mux.write_frame": ("pbs_plus_mux_frame_write_seconds", None),
 }
 
 
@@ -102,6 +107,36 @@ def enabled() -> bool:
     pays per-chunk measurement cost outside the span calls (the writers'
     stage accumulators) asks this, as the reference's writers do."""
     return True
+
+
+def capture() -> None:
+    """The ambient trace context for hand-off to another thread: always
+    None, since the port propagates none (the pipelined writer hands it
+    to its workers as the reference's does)."""
+    return None
+
+
+class attached:
+    """Attach a captured context for the block; with nothing to attach
+    (the port's ``capture()`` is None) it keeps whatever is ambient, as
+    the reference's ``attached(None)`` does."""
+
+    __slots__ = ("_target",)
+
+    def __init__(self, ctx: None):
+        self._target = ctx
+
+    def __enter__(self) -> "attached":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+def headers_out(headers: "dict | None" = None) -> dict:
+    """An outgoing call's header dict with the ambient context injected;
+    the port carries none, so the caller's headers (or ``{}``)."""
+    return headers if headers is not None else {}
 
 
 def histograms() -> "dict[str, dict]":

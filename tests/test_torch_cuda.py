@@ -454,3 +454,71 @@ def test_multi_device_layer_on_distinct_cards_equals_one_card(cards):
     assert all(np.array_equal(a, b) for a, b in zip(fan, local))
     assert digs == [hashlib.sha256(stream[s:e].tobytes()).digest()
                     for s, e in bounds]
+
+
+@pytest.mark.parametrize("pbs", [False, True], ids=["tpxd", "pbs"])
+def test_store_and_verification_on_card(cuda, tmp_path, pbs):
+    """A small LocalStore on the card (K1 cuts, K2 digests, K3 probes)
+    equals one on the CPU chunk for chunk; the verification job on the
+    card reports as the CPU's does, also with one flipped chunk (reported
+    in the PBS layout, raised in the tpxd one)."""
+    import asyncio
+    import io
+    import os
+    from types import SimpleNamespace
+
+    from pbs_plus_tpu_torch.pxar.backupproxy import LocalStore
+    from pbs_plus_tpu_torch.pxar.format import KIND_DIR, KIND_FILE, Entry
+    from pbs_plus_tpu_torch.server.verification_job import run_verification
+
+    files = {f"f{i}": _bytes(1000 + 37_000 * i, 20 + i).tobytes()
+             for i in range(5)}
+    stores = {}
+    for dev in ("cpu", "cuda"):
+        ls = LocalStore(str(tmp_path / dev), TEST_PARAMS, pbs_format=pbs,
+                        dedup_index_mb=1, device=dev)
+        before = (rolling_hash.KERNEL.launches, sha256.KERNEL.launches,
+                  cuckoo.stats["device_probes"])
+        sess = ls.start_session(backup_type="host", backup_id="a",
+                                backup_time=1_700_000_000)
+        sess.writer.write_entry(Entry(path="", kind=KIND_DIR, mode=0o40755))
+        for name, data in files.items():
+            sess.writer.write_entry_reader(
+                Entry(path=name, kind=KIND_FILE, size=len(data)),
+                io.BytesIO(data))
+        sess.finish()
+        after = (rolling_hash.KERNEL.launches, sha256.KERNEL.launches,
+                 cuckoo.stats["device_probes"])
+        if dev == "cuda":
+            assert all(a > b for a, b in zip(after, before))
+        stores[dev] = ls.datastore
+    raw = {dev: {d: ds.chunks.get_raw(d) for d in ds.chunks.iter_digests()}
+           for dev, ds in stores.items()}
+    assert raw["cpu"] == raw["cuda"]
+
+    def verify(dev):
+        srv = SimpleNamespace(config=SimpleNamespace(verify_workers=0),
+                              datastore=SimpleNamespace(datastore=stores["cuda"]))
+        return asyncio.run(run_verification(
+            srv, {"id": "v", "sample_rate": 1.0}, device=dev))
+
+    before = sha256.KERNEL.launches
+    assert verify("cuda") == verify("cpu")
+    ds = stores["cuda"]
+    ref = ds.list_snapshots()[0]
+    d = ds.load_indexes(ref)[1].digest(0)
+    with open(ds.chunks._path(d), "r+b") as f:
+        raw = bytearray(f.read())
+        raw[len(raw) // 2] ^= 0x40
+        f.seek(0)
+        f.write(raw)
+    if pbs:
+        rep = verify("cuda")
+        assert rep == verify("cpu")
+        assert rep["corrupt"] == [{"snapshot": str(ref),
+                                   "files": [f"chunk:{d.hex()}"]}]
+    else:
+        for dev in ("cuda", "cpu"):
+            with pytest.raises(OSError, match="corrupt on disk"):
+                verify(dev)
+    assert sha256.KERNEL.launches > before

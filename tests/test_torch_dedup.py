@@ -5,11 +5,14 @@ card.  Tolerance is exact.  ``test_torch_pipeline.py`` holds the
 whole-stream ``DedupPipeline``."""
 
 import argparse
+import ast
+import asyncio
 import io
 import os
 import subprocess
 import sys
 import threading
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -30,6 +33,10 @@ from pbs_plus_tpu_torch import parallel
 from pbs_plus_tpu_torch.parallel import dist_index
 from pbs_plus_tpu_torch.pxar import (DedupIndex, IngestCollector, SimilarityIndex,
                                      collector_for)
+from pbs_plus_tpu_torch.pxar.backupproxy import LocalStore
+from pbs_plus_tpu_torch.pxar.datastore import ChunkStore, Datastore
+from pbs_plus_tpu_torch.server.verification_job import (enqueue_verification,
+                                                        run_verification)
 from pbs_plus_tpu_torch.sidecar import DedupService, serve_sidecar
 from pbs_plus_tpu_torch.utils.device import CudaUnavailableError
 
@@ -227,6 +234,34 @@ assert recs[-1][0] == len(data) and recs[0][1] == hashlib.sha256(
     data[:recs[0][0]]).digest()
 assert set(store.chunks) == {d for _, d in recs}
 
+# the snapshot store and the verification job: one small backup through
+# LocalStore in the stock-PBS layout (pxar v2 entries and DataBlob chunks
+# need no msgpack), read back, then verified at a sample rate of 1.0
+import asyncio, io
+from types import SimpleNamespace
+from pbs_plus_tpu_torch.pxar.backupproxy import LocalStore
+from pbs_plus_tpu_torch.pxar.format import KIND_DIR, KIND_FILE, Entry
+from pbs_plus_tpu_torch.server.verification_job import run_verification
+with tempfile.TemporaryDirectory() as tmp:
+    ls = LocalStore(tmp, TEST_PARAMS, pbs_format=True, dedup_index_mb=1,
+                    device="cpu")
+    sess = ls.start_session(backup_type="host", backup_id="gate")
+    sess.writer.write_entry(Entry(path="", kind=KIND_DIR, mode=0o40755))
+    sess.writer.write_entry_reader(Entry(path="f", kind=KIND_FILE,
+                                         size=len(data)), io.BytesIO(data))
+    sess.finish()
+    snap = ls.datastore.list_snapshots()[0]
+    rd = ls.open_snapshot(snap)
+    assert rd.read_file(rd.lookup("f")) == data
+    srv = SimpleNamespace(config=SimpleNamespace(verify_workers=0),
+                          datastore=SimpleNamespace(datastore=ls.datastore))
+    rep = asyncio.run(run_verification(srv, {"id": "v", "sample_rate": 1.0},
+                                       device="cpu"))
+    assert rep["corrupt"] == [] and rep["snapshots"] == [str(snap)]
+    assert rep["checked"] == len({ix.digest(i) for ix in (rd.meta_index,
+                                                         rd.payload_index)
+                                  for i in range(len(ix))})
+
 bad = [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
 assert not bad, bad
 print(len(mods))
@@ -237,7 +272,85 @@ def test_port_imports_without_jax_or_reference():
     r = subprocess.run([sys.executable, "-c", _GATE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 46
+    assert int(r.stdout.split()[-1]) >= 68
+
+
+_STORE_GATE = r"""
+import asyncio, hashlib, io, sys, tempfile
+from types import SimpleNamespace
+
+_BLOCKED = ("jax", "jaxlib", "pbs_plus_tpu")
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in _BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+from pbs_plus_tpu_torch.chunker.spec import TEST_PARAMS
+from pbs_plus_tpu_torch.pxar.backupproxy import LocalStore
+from pbs_plus_tpu_torch.pxar.format import KIND_DIR, KIND_FILE, Entry
+from pbs_plus_tpu_torch.server.verification_job import run_verification
+
+data = bytes(range(256)) * 12
+with tempfile.TemporaryDirectory() as tmp:
+    ls = LocalStore(tmp, TEST_PARAMS, dedup_index_mb=1, pipeline_workers=2,
+                    device="cpu")
+    for t in (1, 2):
+        sess = ls.start_session(backup_type="host", backup_id="gate",
+                                backup_time=1_700_000_000 + t)
+        sess.writer.write_entry(Entry(path="", kind=KIND_DIR, mode=0o40755))
+        sess.writer.write_entry_reader(Entry(path="f", kind=KIND_FILE,
+                                             size=len(data)), io.BytesIO(data))
+        man = sess.finish()
+    assert man["previous"] and man["stats"]["new_chunks"] == 0
+    rd = ls.open_snapshot(ls.datastore.list_snapshots()[-1])
+    assert rd.lookup("f").digest == hashlib.sha256(data).digest()
+    srv = SimpleNamespace(config=SimpleNamespace(verify_workers=0),
+                          datastore=SimpleNamespace(datastore=ls.datastore))
+    rep = asyncio.run(run_verification(srv, {"id": "v", "sample_rate": 1.0},
+                                       device="cpu"))
+    assert rep["corrupt"] == [] and rep["checked"] == 2
+bad = [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_tpxd_store_and_verification_run_without_jax_or_reference():
+    """The native layout's tpxar entries need msgpack, which the import
+    gate blocks for the sidecar's sake: the pipelined tpxd write path and
+    the file-level verification run here with only jax and the
+    reference blocked."""
+    r = subprocess.run([sys.executable, "-c", _STORE_GATE], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
+
+
+def _imports_of(path):
+    """Every module an ``import``/``from`` statement of ``path`` names,
+    at any depth (inside functions too); relative imports stay
+    relative."""
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_import_of_jax_or_reference_anywhere_in_the_port():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for dp, _dn, fn in os.walk(os.path.join(REPO, "pbs_plus_tpu_torch")):
+        files += [os.path.join(dp, f) for f in fn if f.endswith(".py")]
+    assert len(files) >= 69
+    bad = [(os.path.relpath(f, REPO), m) for f in files
+           for m in _imports_of(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "pbs_plus_tpu")]
+    assert bad == []
 
 
 def test_cuda_request_raises_without_card(tmp_path):
@@ -277,6 +390,12 @@ def test_cuda_request_raises_without_card(tmp_path):
             lambda: parallel.make_seq_mesh(2),
             lambda: parallel.dryrun_multichip(2),
             lambda: IngestCollector(object()),
-            lambda: collector_for(object())):
+            lambda: collector_for(object()),
+            lambda: LocalStore(str(tmp_path / "ls"), P),
+            lambda: Datastore(str(tmp_path / "ds")),
+            lambda: ChunkStore(str(tmp_path / "cs")),
+            lambda: asyncio.run(run_verification(SimpleNamespace(),
+                                                 {"id": "v"})),
+            lambda: enqueue_verification(SimpleNamespace(), {"id": "v"})):
         with pytest.raises(CudaUnavailableError):
             call()
