@@ -47,7 +47,19 @@ runs one phase per line:
               64 MiB batches (pbs), against hashlib's time and K2's bound;
               then one flipped byte in a payload chunk file, reported as
               chunk:<hex> (pbs) or raised as OSError (tpxd, as the JAX
-              package's job does)
+              package's job does), and flipped back
+   mount      each store's newest snapshot of its first group mounted
+              (ArchiveView over the shared chunk cache, Journal,
+              MutableFS) and committed by CommitEngine on the card: 4 KiB
+              writes into 8 files, one file over 32 MiB overwritten, 16
+              new files in a new directory, 4 unlinks, a directory
+              renamed; commit #1 (K1, K2 and K3 launched), commit #2 after
+              two more writes, and commit #3 through an engine that flips
+              one bit of one expected digest, which must fail and publish
+              nothing; every file read back equals the host's copy, the
+              changed files' digests equal hashlib's; seconds per commit
+              phase, changed MiB/s, new/known/reused chunks, launches, the
+              verify's K2/host split beside hashlib's time and K2's bound
 7. sidecar    the route an unmodified backup server takes: DedupService on
               the card, 8 client threads streaming the 8 streams through
               Chunk in 4 MiB pages, InsertIndex of backup #1, backup #2
@@ -144,6 +156,12 @@ VERIFY_SNAPSHOT_CHUNKS = 48   # chunks behind the snapshot reader
 INGEST_WINDOW = 32 << 20  # each stream's window in the fused-ingest batch
 STORE_FILE_MIN = 4 << 10  # the store phase's files: log-uniform sizes
 STORE_FILE_MAX = 64 << 20
+MOUNT_WRITES = 8          # the mount phase: 4 KiB writes into 8 files,
+MOUNT_WRITE_BYTES = 4 << 10
+MOUNT_NEW_FILES = 16      # 16 new files of log-uniform 4 KiB-16 MiB,
+MOUNT_NEW_MAX = 16 << 20
+MOUNT_UNLINKS = 4         # 4 unlinks
+MOUNT_VERIFY_BATCH = None  # None: CommitEngine.VERIFY_BATCH_BYTES (32 MiB)
 # the index tier at a server's defaults (PBS_PLUS_DEDUP_INDEX_MB=64,
 # PBS_PLUS_DEDUP_RESIDENT_MB=256): 4 Mi digests are a 16 TiB datastore of
 # 4 MiB chunks, a filter load of 0.5, and spill the 112 B/entry memtable
@@ -802,12 +820,243 @@ def verification_phase(dev, stores: dict, clock_hz: float) -> dict:
                   and d.hex() in raised,
                   f"tpxd verification did not raise on the flipped chunk: {raised}")
             flipped = {"raised": raised}
+        # the byte flipped back: the mount phase mounts these snapshots
+        with open(ds.chunks._path(d), "r+b") as f:
+            raw[len(raw) // 2] ^= 0x40
+            f.write(raw)
         out["stores"][kind] = {
             "snapshots": rep["snapshots"], "checked": rep["checked"],
             "bytes": sum(lens), "longest": max(lens), "seconds": secs,
             "hashlib_s": hashlib_s, "k2_launches": launches,
             "k2_flushes": flushes, "k2_bound_ms": bound_ms,
             "flipped_chunk": d.hex(), **flipped}
+    return out
+
+
+def verify_batches(entries: list[tuple[str, int]], ceiling: int):
+    """What ``CommitEngine._verify_entries`` does with ``entries`` (path,
+    size) in order: the files over ``ceiling`` hashed on the host, the
+    rest in batches flushed once they hold ``ceiling`` bytes."""
+    host, batches, batch, held = [], [], [], 0
+    for path, size in entries:
+        if size > ceiling:
+            host.append((path, size))
+            continue
+        batch.append((path, size))
+        held += size
+        if held >= ceiling:
+            batches.append(batch)
+            batch, held = [], 0
+    if batch:
+        batches.append(batch)
+    return host, batches
+
+
+def mount_phase(dev, stores: dict, seed: int, root: str, clock_hz: float) -> dict:
+    """One mount per layout of the store phase's newest snapshot of its
+    first group (256 MiB of files), driven through ``MutableFS`` calls and
+    committed by ``CommitEngine(device=dev)``: 4 KiB writes into
+    MOUNT_WRITES files, the largest file overwritten whole past the
+    verify's batch ceiling (so the host-hash branch runs), MOUNT_NEW_FILES
+    new files in a new directory, MOUNT_UNLINKS unlinks and the rename of
+    the directory of every archived file; commit #1, two more 4 KiB
+    writes and commit #2, then one write and commit #3 through an engine
+    that flips one bit of one expected digest before the verify.  Every
+    file of commits #1 and #2 read back through ``SplitReader`` equals a
+    host dict of the mutations; the changed files' digests equal
+    hashlib's; commit #3 raises and publishes nothing."""
+    from pbs_plus_tpu_torch.mount import (ArchiveView, CommitEngine, Journal,
+                                          MutableFS)
+    from pbs_plus_tpu_torch.ops import cuckoo, rolling_hash, sha256
+    from pbs_plus_tpu_torch.pxar import chunkcache
+    from pbs_plus_tpu_torch.pxar.transfer import SplitReader
+
+    class MeasuredEngine(CommitEngine):
+        def _verify_entries(self, vp, reader, entries):
+            self.verified_entries = [(e.path, e.size) for e in entries]
+            return super()._verify_entries(vp, reader, entries)
+
+    class FlippingEngine(CommitEngine):
+        def _verify_entries(self, vp, reader, entries):
+            e = entries[0]
+            e.digest = bytes([e.digest[0] ^ 1]) + e.digest[1:]
+            return super()._verify_entries(vp, reader, entries)
+
+    out = {"phase": "mount", "layouts": {}}
+    totals = {"candidate_mask": 0, "sha256_chunks": 0, "cuckoo_probe": 0}
+    for kind, st in stores.items():
+        name = st.groups[0]
+        ls, ds = st.store, st.store.datastore
+        ref0 = ds.last_snapshot("host", name)
+        a = st.streams[1][name]
+        host = {f"d/f{i:05d}": a[s:e].tobytes()
+                for i, (s, e) in enumerate(st.files[name])}
+        mroot = os.path.join(root, f"mount-{kind}")
+        fs = MutableFS(ArchiveView(ls.open_snapshot(
+            ref0, cache=chunkcache.shared_cache())),
+            Journal(os.path.join(mroot, "journal.db")),
+            os.path.join(mroot, "passthrough"))
+        engine = MeasuredEngine(fs, ls, backup_id=name, previous=ref0,
+                                device=dev)
+        if MOUNT_VERIFY_BATCH:
+            engine.VERIFY_BATCH_BYTES = MOUNT_VERIFY_BATCH
+        ceiling = engine.VERIFY_BATCH_BYTES
+        marks = []
+        engine.progress.listeners.append(
+            lambda ph, info: marks.append((ph, time.perf_counter())))
+
+        # the mutations, the same draws for both layouts
+        rng = np.random.default_rng(seed + 300)
+        paths = sorted(host)
+        big = max(paths, key=lambda p: len(host[p]))
+        others = [p for p in paths
+                  if p != big and len(host[p]) >= MOUNT_WRITE_BYTES]
+        pick = [others[i] for i in rng.permutation(len(others))]
+        written = pick[:MOUNT_WRITES]
+        unlinked = pick[MOUNT_WRITES:MOUNT_WRITES + MOUNT_UNLINKS]
+        check(len(unlinked) == MOUNT_UNLINKS,
+              f"{kind}: {len(others)} files too few for the mutations")
+
+        def write(path, off=None):
+            if off is None:
+                off = int(rng.integers(0, len(host[path]) - MOUNT_WRITE_BYTES + 1))
+            data = rng.bytes(MOUNT_WRITE_BYTES)
+            fs.write(path, data, off)
+            host[path] = host[path][:off] + data + host[path][off + len(data):]
+            return off, data
+
+        for p in written:
+            write(p)
+        data = rng.bytes(max(len(host[big]), ceiling + ceiling // 4))
+        fs.write(big, data, 0)
+        host[big] = data
+        fs.mkdir("n")
+        lo, hi = np.log(STORE_FILE_MIN), np.log(MOUNT_NEW_MAX)
+        for i in range(MOUNT_NEW_FILES):
+            data = rng.bytes(int(np.exp(rng.uniform(lo, hi))))
+            fs.create(f"n/new{i:02d}")
+            fs.write(f"n/new{i:02d}", data)
+            host[f"n/new{i:02d}"] = data
+        for p in unlinked:
+            fs.unlink(p)
+            del host[p]
+        fs.rename("d", "r")
+        host = {("r" + p[1:] if p.startswith("d/") else p): v
+                for p, v in host.items()}
+        untouched = len(paths) - MOUNT_WRITES - 1 - MOUNT_UNLINKS
+
+        def commit(tag):
+            marks.clear()
+            gen = fs.view.generation
+            prog = engine.progress
+            ref_files0 = prog.ref_files
+            rolling_hash.KERNEL.launches = 0
+            sha256.KERNEL.launches = 0
+            cuckoo.stats["device_probes"] = 0
+            ref, secs = timed(engine.commit)
+            launches = {"candidate_mask": rolling_hash.KERNEL.launches,
+                        "sha256_chunks": sha256.KERNEL.launches,
+                        "cuckoo_probe": cuckoo.stats["device_probes"]}
+            for k, v in launches.items():
+                totals[k] += v
+            check(fs.view.generation == gen + 1,
+                  f"{kind} {tag}: generation {fs.view.generation} after {gen}")
+            js = fs.journal.stats()
+            check(js["edges"] == js["whiteouts"] == js["xattrs"] == 0,
+                  f"{kind} {tag}: journal not empty after the commit: {js}")
+            check(os.listdir(fs.passthrough) == [],
+                  f"{kind} {tag}: passthrough directory not empty")
+            # every file reads back; every changed file's digest is hashlib's
+            rd = SplitReader.open_snapshot(ds, ref)
+            ents = {e.path: e for e in rd.entries() if e.is_file}
+            check(sorted(ents) == sorted(host), f"{kind} {tag}: file list")
+            for p, e in ents.items():
+                check(rd.read_file(e) == host[p], f"{kind} {tag}: {p} differs")
+            changed = list(engine._changed_paths)
+            for p in changed:
+                d = hashlib.sha256(host[p]).digest()
+                check(engine._changed_digests[p] == d and (
+                    kind == "pbs" or ents[p].digest == d),
+                    f"{kind} {tag}: digest of {p} != hashlib")
+            nonempty = sum(1 for p in changed if host[p])
+            check(prog.verified == nonempty,
+                  f"{kind} {tag}: verified {prog.verified}, want {nonempty}")
+            man = ds.load_manifest(ref)
+            check(man["stats"]["ref_chunks"] > 0,
+                  f"{kind} {tag}: no chunk reused by reference")
+            # what the verify hashed, and where
+            host_hashed, batches = verify_batches(engine.verified_entries,
+                                                  ceiling)
+            t0 = time.perf_counter()
+            for p, _ in engine.verified_entries:
+                hashlib.sha256(host[p]).digest()
+            hashlib_s = time.perf_counter() - t0
+            ts = dict(marks)
+            order = [ph for ph, _ in marks]
+            changed_bytes = sum(len(host[p]) for p in changed)
+            return ref, {
+                "snapshot": str(ref), "seconds": secs,
+                "phase_seconds": {ph: ts[order[i + 1]] - ts[ph]
+                                  for i, ph in enumerate(order[:-1])},
+                "changed_files": len(changed), "changed_bytes": changed_bytes,
+                "changed_mib_s": changed_bytes / 2**20 / secs,
+                "ref_files": prog.ref_files - ref_files0,
+                "untouched_files": untouched if tag == "commit1" else None,
+                "new_chunks": man["stats"]["new_chunks"],
+                "known_chunks": man["stats"]["known_chunks"],
+                "ref_chunks": man["stats"]["ref_chunks"],
+                "launches": launches, "verified": prog.verified,
+                "verify": {"k2_files": sum(len(b) for b in batches),
+                           "k2_bytes": sum(n for b in batches for _, n in b),
+                           "k2_batches": len(batches),
+                           "host_files": len(host_hashed),
+                           "host_bytes": sum(n for _, n in host_hashed),
+                           "hashlib_s": hashlib_s,
+                           "k2_bound_ms": sum(k2_chain_ms(max(n for _, n in b),
+                                                          clock_hz)
+                                              for b in batches)}}
+
+        ref1, c1 = commit("commit1")
+        check(all(v > 0 for v in c1["launches"].values()),
+              f"a kernel of the {kind} commit path did not launch: "
+              f"{c1['launches']}")
+        check(c1["ref_files"] >= untouched,
+              f"{kind}: {c1['ref_files']} files by reference, "
+              f"{untouched} untouched")
+        check(c1["verify"]["host_files"] >= 1 and c1["verify"]["k2_files"] >= 1,
+              f"{kind}: the verify did not split host/K2: {c1['verify']}")
+        live = [p for p in sorted(host) if p.startswith("r/")
+                and len(host[p]) >= MOUNT_WRITE_BYTES]
+        for i in rng.permutation(len(live))[:2]:
+            write(live[i])
+        ref2, c2 = commit("commit2")
+        # commit #3: one write, then a verify that must fail on K2's verdict
+        snaps = [str(r) for r in ds.list_snapshots("host", name)]
+        gen = fs.view.generation
+        p3 = live[0]
+        off, data = write(p3)
+        bad = FlippingEngine(fs, ls, backup_id=name, previous=ref2, device=dev)
+        if MOUNT_VERIFY_BATCH:
+            bad.VERIFY_BATCH_BYTES = MOUNT_VERIFY_BATCH
+        try:
+            bad.commit()
+            raised = None
+        except RuntimeError as e:
+            raised = str(e)
+        check(raised == "commit verification failed for 1 files",
+              f"{kind} commit #3 did not fail its verify: {raised}")
+        check([str(r) for r in ds.list_snapshots("host", name)] == snaps,
+              f"{kind} commit #3 published a snapshot")
+        check(fs.view.generation == gen and fs.journal.stats()["edges"] > 0
+              and fs.read(p3, off, len(data)) == data,
+              f"{kind} commit #3 did not leave the mount as it was")
+        fs.journal.close()
+        out["layouts"][kind] = {"group": name, "mounted": str(ref0),
+                                "files": len(paths), "bytes": len(a),
+                                "verify_ceiling": ceiling,
+                                "commits": [c1, c2],
+                                "failing_commit": raised}
+    out["launches"] = totals
     return out
 
 
@@ -1877,6 +2126,8 @@ def main() -> int:
         emit(store_line)
         ver_line = verification_phase(dev, stores, clock_hz)
         emit(ver_line)
+        mount_line = mount_phase(dev, stores, args.seed, store_root, clock_hz)
+        emit(mount_line)
         del stores
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
@@ -2332,6 +2583,7 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": k3_ms,
          "fused_ingest_launches": fused["launches"]["cuckoo_probe"],
          "store_launches": store_launches["cuckoo_probe"],
+         "mount_launches": mount_line["launches"]["cuckoo_probe"],
          "index": {"launches": ix["k3_launches"],
                    "table_bytes": INDEX_BUDGET_MB << 20,
                    "batch_ms": ix["k3_ms"],
@@ -2413,7 +2665,8 @@ def main() -> int:
              "sequence_parallel": par_nums["sp"]["launches"],
              "fan_in": par_nums["fan_in"]["k1"],
              "fused_ingest": fused["launches"]["candidate_mask"],
-             "store": store_launches["candidate_mask"]},
+             "store": store_launches["candidate_mask"],
+             "mount": mount_line["launches"]["candidate_mask"]},
          "max_abs_err": int(k1_err > 0),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": "bytes" if k1_bound_bytes >= k1_bound_ops else "operations",
@@ -2428,7 +2681,8 @@ def main() -> int:
              "fan_in": par_nums["fan_in"]["k2"],
              "fused_ingest": fused["launches"]["sha256_chunks"],
              "store": store_launches["sha256_chunks"],
-             "verification": ver_launches},
+             "verification": ver_launches,
+             "mount": mount_line["launches"]["sha256_chunks"]},
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "plain_shape": f"size list {SHA_SIZES}, kernel {k2_small_ms} ms there",

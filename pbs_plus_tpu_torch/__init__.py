@@ -36,6 +36,14 @@ kernel's plain PyTorch version.
   ``enqueue_verification``; K2 re-hashes stored snapshots), with copies
   of the job record, the aRPC call layer (``arpc``) and the task UPID
   (``proxmox``) it uses.
+- mount: the mount stack (copies of the JAX package's ``Journal``,
+  ``ArchiveView``, ``MutableFS``, control socket and libfuse frontend) and
+  ``CommitEngine(device=)``, which commits a mutated mount as a new
+  snapshot: the store cuts (K1), digests (K2) and probes (K3), and the
+  engine re-verifies the changed files on K2.  ``python -m
+  pbs_plus_tpu_torch mount`` / ``commit`` run it; ``server.mount_service``
+  spawns the former.  ``pxar.pbsstore.PBSStore(device=)`` commits to a
+  PBS server over its wire protocol.
 - convert: index and chunker state carried across from the JAX package.
 """
 
@@ -58,6 +66,8 @@ from .pxar import (ChunkStore, Datastore, DedupIndex, DigestLog,
                    FusedIngestStream, IngestCollector, LocalStore,
                    SimilarityIndex, SplitReader, collector_for)
 from .server.verification_job import enqueue_verification, run_verification
+from .mount import ArchiveView, CommitEngine, Journal, MutableFS
+from .pxar.pbsstore import PBSConfig, PBSStore
 from .parallel import (DistIndexClient, IndexShardServer, ShardedCuckooIndex,
                        ShardMap, make_mesh, make_seq_mesh,
                        multichip_dedup_step, sp_chunk_stream)
@@ -84,6 +94,8 @@ __all__ = [
     "IngestCollector", "FusedIngestStream", "collector_for",
     "LocalStore", "ChunkStore", "Datastore", "SplitReader",
     "run_verification", "enqueue_verification",
+    "ArchiveView", "CommitEngine", "Journal", "MutableFS",
+    "PBSConfig", "PBSStore",
     "DistIndexClient", "IndexShardServer", "ShardMap",
     "make_mesh", "make_seq_mesh", "multichip_dedup_step", "sp_chunk_stream",
     "ShardedCuckooIndex",

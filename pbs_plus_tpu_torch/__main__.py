@@ -1,5 +1,5 @@
 """Command line of the port: ``python -m pbs_plus_tpu_torch sidecar``,
-``index-shard`` and ``dryrun-multichip``.
+``index-shard``, ``dryrun-multichip``, ``mount`` and ``commit``.
 
     python -m pbs_plus_tpu_torch sidecar --listen 127.0.0.1:18900 \\
         --chunk-avg 4194304 --device cuda
@@ -21,11 +21,24 @@ runs the multi-device step and sequence-parallel chunking once at tiny
 shapes against the single-device path, over ``cuda:0..7``, or over
 ``cuda:0`` repeated where fewer cards are visible; it prints a JSON
 summary.
+
+    python -m pbs_plus_tpu_torch mount --store /srv/ds \
+        --snapshot host/web/2026-01-01T00:00:00Z --mount-state /srv/m1 \
+        --socket /srv/m1/ctl.sock --mountpoint /mnt/web --device cuda
+    python -m pbs_plus_tpu_torch commit --socket /srv/m1/ctl.sock
+
+serves a snapshot as a mutable mount (``--pbs-url`` for a PBS server
+instead of ``--store``; no ``--snapshot`` for an empty one) and commits
+it as a new snapshot: the changed files are cut (K1), digested (K2),
+probed against the store's index (K3) and re-verified (K2) on the card.
+The flags are the JAX package's ``mount``/``commit`` flags, plus
+``--device``.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from .parallel.dist_index import add_shard_arguments
@@ -60,6 +73,101 @@ def _cmd_dryrun(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_mount(args: argparse.Namespace) -> int:
+    """Twin of the JAX package's ``cli._cmd_mount``: the store, the
+    commit engine and the sessions run on ``--device``."""
+    import asyncio
+
+    from .chunker import ChunkerParams
+    from .mount import ArchiveView, CommitEngine, Journal, MutableFS
+    from .mount.control import MountControl
+    from .pxar import LocalStore
+    from .pxar.datastore import parse_snapshot_ref
+
+    if not args.store and not args.pbs_url:
+        raise SystemExit("mount: one of --store / --pbs-url is required")
+    if args.pbs_url and not args.pbs_datastore:
+        raise SystemExit("mount: --pbs-datastore is required with --pbs-url")
+
+    async def main():
+        params = ChunkerParams(avg_size=args.chunk_avg)
+        if args.pbs_url:
+            # mount + commit straight against a PBS server (the
+            # reference's primary pxar-mount workflow: serve a PBS
+            # snapshot mutable, commit re-snapshots to the same PBS)
+            from .pxar.pbsstore import PBSConfig, PBSStore
+            store = PBSStore(PBSConfig(
+                base_url=args.pbs_url, datastore=args.pbs_datastore,
+                auth_token=args.pbs_token, namespace=args.pbs_namespace,
+                fingerprint=args.pbs_fingerprint), params,
+                device=args.device)
+        else:
+            store = LocalStore(args.store, params,
+                               pbs_format=args.datastore_format == "pbs",
+                               device=args.device)
+        previous = None
+        if args.snapshot:
+            from .pxar import chunkcache
+            previous = parse_snapshot_ref(args.snapshot)
+            view = ArchiveView(store.open_snapshot(
+                previous, cache=chunkcache.shared_cache()))
+        else:
+            view = ArchiveView(None)     # init mode: empty archive
+        state = os.path.abspath(args.mount_state)
+        journal = Journal(os.path.join(state, "journal.db"))
+        fs = MutableFS(view, journal, os.path.join(state, "passthrough"))
+        bid = args.backup_id or (previous.backup_id if previous else "mount")
+        engine = CommitEngine(fs, store, backup_id=bid, previous=previous,
+                              device=args.device)
+        ctl = MountControl(engine, args.socket)
+        fuse = None
+        try:
+            await ctl.start()
+            if args.mountpoint:
+                from .mount.fusefs import FuseMount
+                try:
+                    fuse = FuseMount(fs, args.mountpoint)
+                    await asyncio.get_running_loop().run_in_executor(
+                        None, fuse.mount)
+                except (OSError, TimeoutError, RuntimeError) as e:
+                    raise SystemExit(f"kernel FUSE mount failed: {e}")
+                print(f"kernel mount at {args.mountpoint}", flush=True)
+            print(f"mounted "
+                  f"{'(init mode)' if not args.snapshot else args.snapshot}"
+                  f"; control socket {args.socket}", flush=True)
+            stop = asyncio.Event()
+            import signal
+            loop = asyncio.get_running_loop()
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                try:
+                    loop.add_signal_handler(sig, stop.set)
+                except (NotImplementedError, RuntimeError):
+                    pass
+            await stop.wait()       # SIGTERM/SIGINT land here → finally runs
+        finally:
+            if fuse is not None:
+                await asyncio.get_running_loop().run_in_executor(
+                    None, fuse.unmount)
+            await ctl.stop()
+    try:
+        asyncio.run(main())
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _cmd_commit(args: argparse.Namespace) -> int:
+    import asyncio
+
+    from .mount.control import commit_via_socket
+
+    async def main():
+        snap = await commit_via_socket(args.socket, timeout=args.timeout)
+        print(snap)
+    asyncio.run(main())
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m pbs_plus_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -77,6 +185,32 @@ def main(argv: list[str] | None = None) -> int:
     m.add_argument("--devices", type=int, default=8)
     m.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     m.set_defaults(fn=_cmd_dryrun)
+    mt = sub.add_parser("mount", help="serve a mutable archive mount")
+    # the JAX package's mount flags, plus --device
+    mt.add_argument("--store", default="",
+                    help="local datastore dir (or use --pbs-url)")
+    mt.add_argument("--snapshot", default="",
+                    help="[ns/<n>/...]type/id/time (omit for init mode)")
+    mt.add_argument("--pbs-url", default="",
+                    help="mount against a PBS server instead of --store")
+    mt.add_argument("--pbs-datastore", default="")
+    mt.add_argument("--pbs-token", default="")
+    mt.add_argument("--pbs-namespace", default="")
+    mt.add_argument("--pbs-fingerprint", default="")
+    mt.add_argument("--mount-state", required=True)
+    mt.add_argument("--socket", required=True)
+    mt.add_argument("--backup-id", default="")
+    mt.add_argument("--chunk-avg", type=int, default=4 << 20)
+    mt.add_argument("--datastore-format", default="tpxd",
+                    choices=("tpxd", "pbs"))
+    mt.add_argument("--mountpoint", default="",
+                    help="also expose the mount via kernel FUSE here")
+    mt.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    mt.set_defaults(fn=_cmd_mount)
+    c = sub.add_parser("commit", help="commit a mounted archive")
+    c.add_argument("--socket", required=True)
+    c.add_argument("--timeout", type=float, default=600.0)
+    c.set_defaults(fn=_cmd_commit)
     args = ap.parse_args(argv)
     return args.fn(args)
 

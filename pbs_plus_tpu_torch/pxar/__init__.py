@@ -21,6 +21,11 @@ write path, and the store itself.
   ingestbackend: copies of the read cache, the entry codecs, the PBS
   formats, delta blobs, the pipelined writer and the declared-capability
   seam the store needs.
+- pbsstore: ``PBSStore(device=)``, the same session surface over a PBS
+  server's backup and reader protocols (HTTP/1.1, or HTTP/2 after the
+  101 upgrade through ``utils.h2lib``); sessions cut with K1 and digest
+  with K2 on its device.  walker: ``backup_tree``, a directory tree into
+  a session (copies).
 """
 
 from .backupproxy import LocalStore

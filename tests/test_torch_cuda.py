@@ -522,3 +522,73 @@ def test_store_and_verification_on_card(cuda, tmp_path, pbs):
             with pytest.raises(OSError, match="corrupt on disk"):
                 verify(dev)
     assert sha256.KERNEL.launches > before
+
+
+@pytest.mark.parametrize("pbs", [False, True], ids=["tpxd", "pbs"])
+def test_mount_commit_on_card(cuda, tmp_path, monkeypatch, pbs):
+    """A small mount committed on the card (K1 cuts, K2 digests and
+    verifies, K3 probes) equals the same commit on the CPU chunk for
+    chunk (the journal's mtimes pinned); a commit whose expected digest
+    has one bit flipped fails on K2's verdict and publishes nothing."""
+    import io
+    import time
+
+    from pbs_plus_tpu_torch.mount import (ArchiveView, CommitEngine, Journal,
+                                          MutableFS)
+    from pbs_plus_tpu_torch.pxar.backupproxy import LocalStore
+    from pbs_plus_tpu_torch.pxar.format import KIND_DIR, KIND_FILE, Entry
+
+    class Flipping(CommitEngine):
+        def _verify_entries(self, vp, reader, entries):
+            e = entries[0]
+            e.digest = bytes([e.digest[0] ^ 1]) + e.digest[1:]
+            return super()._verify_entries(vp, reader, entries)
+
+    files = {f"d/f{i}": _bytes(1000 + 9_000 * i, 40 + i).tobytes()
+             for i in range(5)}
+    monkeypatch.setattr(time, "time_ns", lambda: 1_700_000_000 * 10**9)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        ls = LocalStore(str(tmp_path / dev / "ds"), TEST_PARAMS,
+                        pbs_format=pbs, dedup_index_mb=1, device=dev)
+        sess = ls.start_session(backup_type="host", backup_id="m",
+                                backup_time=1_700_000_000)
+        w = sess.writer
+        w.write_entry(Entry(path="", kind=KIND_DIR, mode=0o40755))
+        w.write_entry(Entry(path="d", kind=KIND_DIR, mode=0o40755))
+        for name, data in files.items():
+            w.write_entry_reader(Entry(path=name, kind=KIND_FILE,
+                                       size=len(data)), io.BytesIO(data))
+        sess.finish()
+        fs = MutableFS(ArchiveView(ls.open_snapshot(sess.ref)),
+                       Journal(str(tmp_path / dev / "j" / "j.db")),
+                       str(tmp_path / dev / "pass"))
+        fs.write("d/f3", b"x" * 4096, 5000)
+        fs.create("new.bin")
+        fs.write("new.bin", _bytes(20_000, 50).tobytes())
+        fs.rename("d/f1", "d/g1")
+        before = (rolling_hash.KERNEL.launches, sha256.KERNEL.launches,
+                  cuckoo.stats["device_probes"])
+        ref = CommitEngine(fs, ls, backup_id="m", previous=sess.ref,
+                           device=dev).commit()
+        after = (rolling_hash.KERNEL.launches, sha256.KERNEL.launches,
+                 cuckoo.stats["device_probes"])
+        if dev == "cuda":
+            assert all(a > b for a, b in zip(after, before))
+        rd = ls.open_snapshot(ref)
+        read = {e.path: rd.read_file(e) for e in rd.entries() if e.is_file}
+        fs.write("new.bin", b"late", 0)
+        snaps = ls.datastore.list_snapshots()
+        with pytest.raises(RuntimeError, match="verification failed"):
+            Flipping(fs, ls, backup_id="m", previous=ref, device=dev).commit()
+        assert ls.datastore.list_snapshots() == snaps
+        assert fs.view.generation == 1 and fs.read("new.bin")[:4] == b"late"
+        ds = ls.datastore
+        got[dev] = (read, {d: ds.chunks.get_raw(d)
+                           for d in ds.chunks.iter_digests()})
+    assert got["cuda"] == got["cpu"]
+    want = dict(files)
+    want["d/g1"] = want.pop("d/f1")
+    want["d/f3"] = want["d/f3"][:5000] + b"x" * 4096 + want["d/f3"][9096:]
+    want["new.bin"] = _bytes(20_000, 50).tobytes()
+    assert got["cuda"][0] == want

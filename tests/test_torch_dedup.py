@@ -27,6 +27,7 @@ from pbs_plus_tpu_torch.models import (CudaChunker, DedupConfig,
                                        make_batch_hasher,
                                        make_chunker_factory)
 from pbs_plus_tpu_torch.models import SimilarityModel, VerifyPipeline
+from pbs_plus_tpu_torch.mount import CommitEngine
 from pbs_plus_tpu_torch.ops import (fingerprint, ingest, rolling_hash, sha256,
                                     similarity)
 from pbs_plus_tpu_torch import parallel
@@ -35,10 +36,12 @@ from pbs_plus_tpu_torch.pxar import (DedupIndex, IngestCollector, SimilarityInde
                                      collector_for)
 from pbs_plus_tpu_torch.pxar.backupproxy import LocalStore
 from pbs_plus_tpu_torch.pxar.datastore import ChunkStore, Datastore
+from pbs_plus_tpu_torch.pxar.pbsstore import PBSConfig, PBSStore
 from pbs_plus_tpu_torch.server.verification_job import (enqueue_verification,
                                                         run_verification)
 from pbs_plus_tpu_torch.sidecar import DedupService, serve_sidecar
 from pbs_plus_tpu_torch.utils.device import CudaUnavailableError
+from pbs_plus_tpu_torch.__main__ import main as port_main
 
 REF_P = RefParams(avg_size=4 << 10)
 P = params_from_reference(REF_P.avg_size, REF_P.min_size, REF_P.max_size,
@@ -272,7 +275,7 @@ def test_port_imports_without_jax_or_reference():
     r = subprocess.run([sys.executable, "-c", _GATE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 68
+    assert int(r.stdout.split()[-1]) >= 79
 
 
 _STORE_GATE = r"""
@@ -312,6 +315,19 @@ with tempfile.TemporaryDirectory() as tmp:
     rep = asyncio.run(run_verification(srv, {"id": "v", "sample_rate": 1.0},
                                        device="cpu"))
     assert rep["corrupt"] == [] and rep["checked"] == 2
+
+    # the mount: the newest snapshot mounted, one change committed
+    from pbs_plus_tpu_torch.mount import (ArchiveView, CommitEngine, Journal,
+                                          MutableFS)
+    ref = ls.datastore.list_snapshots()[-1]
+    fs = MutableFS(ArchiveView(ls.open_snapshot(ref)),
+                   Journal(tmp + "/j/j.db"), tmp + "/pass")
+    fs.write("f", b"gate", 0)
+    new = CommitEngine(fs, ls, backup_id="gate", previous=ref,
+                       device="cpu").commit()
+    rd = ls.open_snapshot(new)
+    assert rd.read_file(rd.lookup("f")) == b"gate" + data[4:]
+    assert fs.view.generation == 1 and fs.journal.stats()["edges"] == 0
 bad = [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
 assert not bad, bad
 print("ok")
@@ -346,7 +362,7 @@ def test_no_import_of_jax_or_reference_anywhere_in_the_port():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for dp, _dn, fn in os.walk(os.path.join(REPO, "pbs_plus_tpu_torch")):
         files += [os.path.join(dp, f) for f in fn if f.endswith(".py")]
-    assert len(files) >= 69
+    assert len(files) >= 80
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imports_of(f)
            if m.split(".")[0] in ("jax", "jaxlib", "pbs_plus_tpu")]
@@ -396,6 +412,12 @@ def test_cuda_request_raises_without_card(tmp_path):
             lambda: ChunkStore(str(tmp_path / "cs")),
             lambda: asyncio.run(run_verification(SimpleNamespace(),
                                                  {"id": "v"})),
-            lambda: enqueue_verification(SimpleNamespace(), {"id": "v"})):
+            lambda: enqueue_verification(SimpleNamespace(), {"id": "v"}),
+            lambda: CommitEngine(SimpleNamespace(), SimpleNamespace()),
+            lambda: PBSStore(PBSConfig(base_url="http://127.0.0.1:9",
+                                       datastore="d", auth_token="t"), P),
+            lambda: port_main(["mount", "--store", str(tmp_path / "ms"),
+                               "--mount-state", str(tmp_path / "mst"),
+                               "--socket", str(tmp_path / "m.sock")])):
         with pytest.raises(CudaUnavailableError):
             call()
