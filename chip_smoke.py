@@ -60,6 +60,22 @@ runs one phase per line:
               changed files' digests equal hashlib's; seconds per commit
               phase, changed MiB/s, new/known/reused chunks, launches, the
               verify's K2/host split beside hashlib's time and K2's bound
+   backup_job the agent backup job end to end: the 8 streams written as
+              8 agent trees (files as in the store phase, a symlink, a
+              hard link, an excluded file), a port Database with 8 agent
+              targets and job rows, AgentsManager + serve on loopback
+              (mTLS from the port's CertManager where cryptography
+              imports, else the plain loopback mode: "transport"), 8 port
+              AgentLifecycles, jobs 0-3 into a tpxd LocalStore on the card
+              and 4-7 into a pbs one; backup #1 (8 run_target_backup at
+              once), backup #2 after the 4 KiB writes, a job severed by
+              backup.file.stream=drop@nth partway and resumed from its
+              checkpoint, a local-target job; every file read back, every
+              chunk re-hashed, new/known against the indexes, the severed
+              and local jobs' files equal to backup #2's; MiB/s a job and
+              a store, seconds a job by layer (agent read_at and send,
+              the writer's busy time, the publish), K1/K2/K3 launches,
+              new/known/reused chunks, bytes on disk
 7. sidecar    the route an unmodified backup server takes: DedupService on
               the card, 8 client threads streaming the 8 streams through
               Chunk in 4 MiB pages, InsertIndex of backup #1, backup #2
@@ -162,6 +178,8 @@ MOUNT_NEW_FILES = 16      # 16 new files of log-uniform 4 KiB-16 MiB,
 MOUNT_NEW_MAX = 16 << 20
 MOUNT_UNLINKS = 4         # 4 unlinks
 MOUNT_VERIFY_BATCH = None  # None: CommitEngine.VERIFY_BATCH_BYTES (32 MiB)
+JOB_CHECKPOINT = "8c"     # the severed job: a checkpoint every 8 chunks
+JOB_SEVER_AT = 0.5        # the severed job's drop: this share of its reads
 # the index tier at a server's defaults (PBS_PLUS_DEDUP_INDEX_MB=64,
 # PBS_PLUS_DEDUP_RESIDENT_MB=256): 4 Mi digests are a 16 TiB datastore of
 # 4 MiB chunks, a filter load of 0.5, and spill the 112 B/entry memtable
@@ -1057,6 +1075,482 @@ def mount_phase(dev, stores: dict, seed: int, root: str, clock_hz: float) -> dic
                                 "commits": [c1, c2],
                                 "failing_commit": raised}
     out["launches"] = totals
+    return out
+
+
+def backup_job_phase(dev, P, streams: dict, seed: int, root: str) -> dict:
+    """The agent backup job on the card, end to end through the port's
+    entry points: the 8 streams written to disk as 8 agent trees (files
+    cut as in the store phase under ``d/``, a symlink, a hard link and a
+    ``*.tmp`` file the job row excludes), a port ``Database`` with 8
+    agent targets and 8 job rows, an ``AgentsManager`` and ``serve`` on
+    loopback (mTLS with the port's ``CertManager`` where ``cryptography``
+    imports, else the plain loopback mode), 8 port ``AgentLifecycle``s on
+    an event loop of their own, and two ``LocalStore(device=dev)`` at the
+    production defaults: jobs 0-3 into a tpxd store, 4-7 into a pbs one.
+    Backup #1 runs the 8 jobs at once through ``run_target_backup``;
+    backup #2 after the store phase's 4 writes of 4 KiB a stream; then a
+    job of tree 0 severed by ``backup.file.stream=drop@nth=N`` partway,
+    retried once from its checkpoint, and a local-target job of tree 0.
+    Every file of every snapshot reads back equal to its source, every
+    stored chunk re-hashes equal under hashlib, new/known counts hold
+    against the indexes, the excluded file is absent and the hard link
+    is stored once; the severed job's and the local job's files equal
+    backup #2's of the same tree; K1, K2 and K3 launch under the jobs."""
+    import asyncio
+    from pbs_plus_tpu_torch.agent import agentfs, snapshots
+    from pbs_plus_tpu_torch.agent.lifecycle import AgentConfig, AgentLifecycle
+    from pbs_plus_tpu_torch.arpc import (AgentsManager, Router, TlsClientConfig,
+                                         TlsServerConfig, serve)
+    from pbs_plus_tpu_torch.ops import cuckoo, rolling_hash, sha256
+    from pbs_plus_tpu_torch.pxar.backupproxy import LocalStore
+    from pbs_plus_tpu_torch.pxar.transfer import SplitReader
+    from pbs_plus_tpu_torch.server import backup_job, database
+    from pbs_plus_tpu_torch.utils import failpoints, trace
+
+    names = sorted(streams)
+    half = len(names) // 2
+    files = {n: store_files(STREAM_BYTES, seed + 100 + k)
+             for k, n in enumerate(names)}
+    streams2 = rewrite(streams, seed)
+    trees = {n: os.path.join(root, "agents", n) for n in names}
+
+    def write_tree(n, strs):
+        """Tree ``n`` as ``strs[n]`` cut into its files; a file rewritten
+        only where its bytes changed (backup #2's writes)."""
+        d = os.path.join(trees[n], "d")
+        os.makedirs(d, exist_ok=True)
+        for i, (s, e) in enumerate(files[n]):
+            p = os.path.join(d, f"f{i:05d}")
+            if strs is streams or not np.array_equal(streams[n][s:e],
+                                                     strs[n][s:e]):
+                strs[n][s:e].tofile(p)
+        if strs is streams:
+            os.symlink("d/f00000", os.path.join(trees[n], "ln"))
+            os.link(os.path.join(d, "f00001"), os.path.join(trees[n], "hard"))
+            with open(os.path.join(trees[n], "skip.tmp"), "wb") as f:
+                f.write(b"excluded by the job row" * 100)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(lambda n: write_tree(n, streams), names))
+    write_s = time.perf_counter() - t0
+
+    # the transport: mTLS where the wheel imports, else plain loopback
+    try:
+        import cryptography  # noqa: F401
+        from pbs_plus_tpu_torch.utils import mtls
+        transport = "mtls"
+    except ImportError:
+        transport = "loopback-plain"
+    server_tls, agent_tls = None, {n: None for n in names}
+    if transport == "mtls":
+        cm = mtls.CertManager(os.path.join(root, "certs"))
+        cm.load_or_create_ca()
+        cm.ensure_server_identity("pbs-server")
+        server_tls = TlsServerConfig(cm.server_cert_path, cm.server_key_path,
+                                     cm.ca_cert_path)
+        for n in names:
+            cert, key = cm.issue(n)
+            for ext, blob in (("pem", cert), ("key", key)):
+                with open(os.path.join(root, "certs", f"{n}.{ext}"), "wb") as f:
+                    f.write(blob)
+            agent_tls[n] = TlsClientConfig(
+                os.path.join(root, "certs", f"{n}.pem"),
+                os.path.join(root, "certs", f"{n}.key"), cm.ca_cert_path)
+
+    db = database.Database(os.path.join(root, "server.db"))
+    for k, n in enumerate(names):
+        db.upsert_target(n, "agent", hostname=n)
+        db.upsert_backup_job(database.BackupJobRow(
+            id=f"job-{k}", target=n, source_path=trees[n], backup_id=n,
+            exclusions=["*.tmp"]))
+    db.upsert_backup_job(database.BackupJobRow(
+        id="job-severed", target=names[0], source_path=trees[names[0]],
+        backup_id=f"{names[0]}-severed", exclusions=["*.tmp"]))
+    db.upsert_target("local-0", "local", root_path=trees[names[0]])
+    db.upsert_backup_job(database.BackupJobRow(
+        id="job-local", target="local-0", source_path=trees[names[0]],
+        backup_id=f"{names[0]}-local", exclusions=["*.tmp"]))
+    stores = {kind: LocalStore(os.path.join(root, kind), P,
+                               pbs_format=kind == "pbs", device=dev)
+              for kind in ("tpxd", "pbs")}
+    store_of = {n: stores["tpxd" if k < half else "pbs"]
+                for k, n in enumerate(names)}
+
+    # the job's seconds by layer: the agent's read_at (pread) and its raw
+    # stream send, the writer thread's time not spent waiting on the pump
+    # (chunking, K2 flushes, the probe, the chunk writes), the publish
+    lock = threading.Lock()
+    agent_s = {"read_at": 0.0, "send": 0.0, "reads": 0}
+    writer_s = {}
+    tl = threading.local()
+    orig_read_at = agentfs.AgentFSServer._read_at
+    orig_body = backup_job.RemoteTreeBackup._writer_loop_body
+    orig_get = backup_job._get_abortable
+    orig_snapshots = snapshots.SnapshotManager
+
+    async def read_at(self, req, ctx):
+        t = time.perf_counter()
+        out = await orig_read_at(self, req, ctx)
+        t1 = time.perf_counter()
+        fn = out.fn
+
+        async def send(stream):
+            t2 = time.perf_counter()
+            try:
+                await fn(stream)
+            finally:
+                with lock:
+                    agent_s["send"] += time.perf_counter() - t2
+        out.fn = send
+        with lock:
+            agent_s["read_at"] += t1 - t
+            agent_s["reads"] += 1
+        return out
+
+    def writer_body(self):
+        tl.wait = 0.0
+        t = time.perf_counter()
+        try:
+            return orig_body(self)
+        finally:
+            with lock:
+                writer_s[self.session.ref.backup_id] = (
+                    time.perf_counter() - t, tl.wait)
+
+    def get_abortable(q, abort):
+        # every wait of the writer thread on the pump: the entry queue
+        # and each file's block queue
+        t = time.perf_counter()
+        try:
+            return orig_get(q, abort)
+        finally:
+            if hasattr(tl, "wait"):
+                tl.wait += time.perf_counter() - t
+
+    class DirectSnapshots(orig_snapshots):
+        """No filesystem is frozen or snapshotted here: the trees are
+        read live."""
+        def __init__(self, **kw):
+            super().__init__(prefer_direct=True, **kw)
+
+    agentfs.AgentFSServer._read_at = read_at
+    backup_job.RemoteTreeBackup._writer_loop_body = writer_body
+    backup_job._get_abortable = get_abortable
+    snapshots.SnapshotManager = DirectSnapshots
+
+    # the agents' own event loop, as on their own hosts
+    agent_loop = asyncio.new_event_loop()
+    agent_thread = threading.Thread(target=agent_loop.run_forever,
+                                    name="agents", daemon=True)
+    agent_thread.start()
+    loop = asyncio.new_event_loop()
+    agents = AgentsManager()
+
+    async def on_connection(conn, peer, headers):
+        # as the server's aRPC listener does: a control session serves
+        # the server's router, a job data session an empty one (the
+        # server is the client there)
+        sess = await agents.register(peer, headers, conn)
+        try:
+            await Router().serve_connection(conn, context=sess)
+        finally:
+            await agents.unregister(sess)
+
+    listener = loop.run_until_complete(serve(
+        "127.0.0.1", 0, server_tls, on_connection=on_connection,
+        admit=agents.admit))
+    port = listener.sockets[0].getsockname()[1]
+    lifecycles = {n: AgentLifecycle(
+        AgentConfig(hostname=n, server_host="127.0.0.1", server_port=port,
+                    tls=agent_tls[n], job_isolation="task",
+                    drive_update_interval_s=0),
+        snapshot_manager=DirectSnapshots()) for n in names}
+    for lc in lifecycles.values():
+        asyncio.run_coroutine_threadsafe(lc.run(), agent_loop)
+
+    async def stop_agents():
+        for lc in lifecycles.values():
+            await lc.stop()
+        for t in asyncio.all_tasks():
+            if t is not asyncio.current_task():
+                t.cancel()
+        await asyncio.gather(*(t for t in asyncio.all_tasks()
+                               if t is not asyncio.current_task()),
+                             return_exceptions=True)
+
+    async def shutdown():
+        # the agents stop on their loop while the server's runs, so each
+        # side sees the other's close
+        try:
+            await asyncio.wait_for(asyncio.wrap_future(
+                asyncio.run_coroutine_threadsafe(stop_agents(), agent_loop)),
+                60)
+        finally:
+            await stop_server()
+
+    async def stop_server():
+        listener.close()
+        try:
+            await asyncio.wait_for(listener.wait_closed(), 15)
+        except asyncio.TimeoutError:
+            pass
+        for t in asyncio.all_tasks():
+            if t is not asyncio.current_task():
+                t.cancel()
+        await asyncio.gather(*(t for t in asyncio.all_tasks()
+                               if t is not asyncio.current_task()),
+                             return_exceptions=True)
+
+    async def registered():
+        for n in names:
+            await agents.wait_session(n, timeout=60)
+
+    def jobs(rows, **kw):
+        """The rows' jobs at once; per job its result (or exception) and
+        seconds, the wall seconds, the launches and the publish
+        seconds."""
+        async def one(row):
+            t = time.perf_counter()
+            try:
+                res = await backup_job.run_target_backup(
+                    row, db=db, agents=agents,
+                    store=store_of.get(row.target, stores["tpxd"]), **kw)
+            except Exception as e:
+                res = e
+            return res, time.perf_counter() - t
+
+        async def all_rows():
+            return await asyncio.gather(*(one(r) for r in rows))
+
+        rolling_hash.KERNEL.launches = 0
+        sha256.KERNEL.launches = 0
+        cuckoo.stats["device_probes"] = 0
+        hist0 = trace.histograms()
+        t = time.perf_counter()
+        got = loop.run_until_complete(all_rows())
+        wall = time.perf_counter() - t
+        hist = trace.histograms()
+        launches = {"candidate_mask": rolling_hash.KERNEL.launches,
+                    "sha256_chunks": sha256.KERNEL.launches,
+                    "cuckoo_probe": cuckoo.stats["device_probes"]}
+        pub = hist.get("pbs_plus_backup_publish_seconds",
+                       {"sum_s": 0.0, "count": 0})
+        pub0 = hist0.get("pbs_plus_backup_publish_seconds",
+                         {"sum_s": 0.0, "count": 0})
+        return got, wall, launches, (pub["sum_s"] - pub0["sum_s"],
+                                     pub["count"] - pub0["count"])
+
+    out = {"phase": "backup_job", "transport": transport,
+           "params": [P.avg_size, P.min_size, P.max_size],
+           "tree_bytes": STREAM_BYTES, "trees_written_s": write_s,
+           "files": {n: len(files[n]) for n in names},
+           "read_block": backup_job.READ_BLOCK,
+           "queue_depth": backup_job.QUEUE_DEPTH, "backups": []}
+    seen = {kind: set() for kind in stores}
+    try:
+        loop.run_until_complete(registered())
+        rows = [db.get_backup_job(f"job-{k}") for k in range(len(names))]
+        results = []
+        for b, strs in enumerate((streams, streams2)):
+            if b:
+                with ThreadPoolExecutor(8) as pool:
+                    list(pool.map(lambda n: write_tree(n, streams2), names))
+            for key in agent_s:
+                agent_s[key] = 0
+            writer_s.clear()
+            got, wall, launches, (pub_s, pub_n) = jobs(rows)
+            errs = [f"{r.id}: {res!r}" for r, (res, _) in zip(rows, got)
+                    if isinstance(res, Exception)]
+            check(not errs, f"backup job #{b + 1} failed: {errs}")
+            check(all(res.errors == [] for res, _ in got),
+                  f"backup job #{b + 1} errors: {[res.errors for res, _ in got]}")
+            check(all(v > 0 for v in launches.values()),
+                  f"a kernel of the backup job did not launch in #{b + 1}: "
+                  f"{launches}")
+            per_store = {}
+            for kind, ls in stores.items():
+                ds = ls.datastore
+                mine = [(n, res, secs) for n, (res, secs) in zip(names, got)
+                        if store_of[n] is ls]
+                digs = set()
+                for n, res, _ in mine:
+                    ref = ds.last_snapshot("host", n)
+                    check(str(ref) == res.snapshot,
+                          f"{kind} {n}: result snapshot {res.snapshot}")
+                    for idx in ds.load_indexes(ref):
+                        digs.update(idx.digest(i) for i in range(len(idx)))
+                stats = [res.manifest["stats"] for _, res, _ in mine]
+                new = sum(st["new_chunks"] for st in stats)
+                known = sum(st["known_chunks"] for st in stats)
+                reused = sum(st["ref_chunks"] for st in stats)
+                chunks = sum(res.manifest["meta_chunks"]
+                             + res.manifest["payload_chunks"]
+                             for _, res, _ in mine)
+                check(new == len(digs - seen[kind])
+                      and new + known + reused == chunks,
+                      f"{kind} job backup #{b + 1}: new {new}, known {known}, "
+                      f"reused {reused}, chunks {chunks}, novel digests "
+                      f"{len(digs - seen[kind])}")
+                if b:
+                    check(known > 0 and new < chunks // 2,
+                          f"{kind} job backup #2 did not find the unchanged "
+                          f"chunks known: new {new}, known {known}")
+                seen[kind] |= digs
+                longest = max(secs for _, _, secs in mine)
+                per_store[kind] = {
+                    "groups": [n for n, _, _ in mine],
+                    "mib_s": len(mine) * STREAM_BYTES / 2**20 / longest,
+                    "new_chunks": new, "known_chunks": known,
+                    "reused_chunks": reused, "chunks": chunks,
+                    "bytes_on_disk": dir_bytes(ls.datastore.base)}
+            per_job = {}
+            for n, (res, secs) in zip(names, got):
+                w_total, w_wait = writer_s.get(n, (0.0, 0.0))
+                check(res.bytes_total == STREAM_BYTES
+                      and res.files == len(files[n]),
+                      f"job {n} #{b + 1}: {res.files} files, "
+                      f"{res.bytes_total} bytes")
+                per_job[n] = {"seconds": secs,
+                              "mib_s": STREAM_BYTES / 2**20 / secs,
+                              "writer_s": w_total,
+                              "writer_busy_s": w_total - w_wait,
+                              "writer_wait_s": w_wait}
+            out["backups"].append({
+                "backup": b + 1, "wall_s": wall,
+                "mib_s": len(names) * STREAM_BYTES / 2**20 / wall,
+                "launches": launches, "stores": per_store, "jobs": per_job,
+                "agent_read_at_s": agent_s["read_at"],
+                "agent_send_s": agent_s["send"],
+                "agent_reads": agent_s["reads"],
+                "publish_s": pub_s, "publishes": pub_n})
+            results.append(dict(zip(names, (res for res, _ in got))))
+
+        # a severed job: tree 0's stream dropped partway, the retry
+        # resumes from its last checkpoint and publishes
+        n0 = names[0]
+        hits = sum(-(-(e - s) // backup_job.READ_BLOCK) + 1
+                   for s, e in files[n0])
+        nth = max(2, int(hits * JOB_SEVER_AT))
+        failed = []
+        orig_job = backup_job.run_backup_job
+
+        async def spied(*a, **kw):
+            try:
+                return await orig_job(*a, **kw)
+            except Exception as e:
+                failed.append(f"{type(e).__name__}: {e}")
+                raise
+
+        backup_job.run_backup_job = spied
+        try:
+            fps = failpoints.arm_from_spec(f"backup.file.stream=drop@nth={nth}")
+            got, wall, launches, (pub_s, _) = jobs(
+                [db.get_backup_job("job-severed")], attempts=2,
+                checkpoint_interval=JOB_CHECKPOINT)
+        finally:
+            failpoints.disarm("backup.file.stream")
+            backup_job.run_backup_job = orig_job
+        sev, sev_s = got[0]
+        check(not isinstance(sev, Exception), f"severed job failed: {sev!r}")
+        check(fps[0].fires == 1 and len(failed) == 1
+              and "injected connection drop" in failed[0],
+              f"the severed job's first attempt: {failed}")
+        resume = sev.manifest.get("resume")
+        check(resume is not None and resume["files_skipped"] > 0
+              and 0 < resume["bytes_reread"] < STREAM_BYTES,
+              f"the severed job did not resume from a checkpoint: {resume}")
+        check(all(v > 0 for v in launches.values()),
+              f"a kernel of the severed job did not launch: {launches}")
+        out["severed"] = {"nth": nth, "read_hits": hits,
+                          "first_attempt": failed[0], "seconds": sev_s,
+                          "resume": resume,
+                          "reread_share": resume["bytes_reread"] / STREAM_BYTES,
+                          "launches": launches,
+                          "stats": sev.manifest["stats"]}
+
+        # a local target over tree 0
+        got, wall, launches, _ = jobs([db.get_backup_job("job-local")])
+        loc, loc_s = got[0]
+        check(not isinstance(loc, Exception) and loc.errors == [],
+              f"local job failed: {loc!r}")
+        out["local"] = {"seconds": loc_s,
+                        "mib_s": STREAM_BYTES / 2**20 / loc_s,
+                        "launches": launches, "stats": loc.manifest["stats"]}
+    finally:
+        loop.run_until_complete(shutdown())
+        agent_loop.call_soon_threadsafe(agent_loop.stop)
+        agent_thread.join(30)
+        agent_loop.close()
+        loop.close()
+        agentfs.AgentFSServer._read_at = orig_read_at
+        backup_job.RemoteTreeBackup._writer_loop_body = orig_body
+        backup_job._get_abortable = orig_get
+        snapshots.SnapshotManager = orig_snapshots
+        db.close()
+
+    # every file of every snapshot reads back as its source
+    t0 = time.perf_counter()
+    read = 0
+
+    def snapshot_files(ls, ref):
+        rd = SplitReader.open_snapshot(ls.datastore, ref)
+        by = {e.path: e for e in rd.entries()}
+        return rd, by
+
+    want_paths = [f"d/f{i:05d}" for i in range(max(len(v) for v in files.values()))]
+    for b, strs in enumerate((streams, streams2)):
+        for n in names:
+            ls = store_of[n]
+            rd, by = snapshot_files(ls, ls.datastore.list_snapshots("host", n)[b])
+            check("skip.tmp" not in by, f"{n} #{b + 1}: the excluded file was stored")
+            check(by["hard"].kind == "h" and by["hard"].link_target == "d/f00001"
+                  and by["ln"].link_target == "d/f00000",
+                  f"{n} #{b + 1}: the hard link or symlink")
+            ents = [e for e in rd.entries() if e.is_file]
+            check([e.path for e in ents] == want_paths[:len(files[n])],
+                  f"{n} #{b + 1}: entries")
+            for e, (s, t) in zip(ents, files[n]):
+                got_b = rd.read_file(e)
+                check(np.array_equal(np.frombuffer(got_b, np.uint8),
+                                     strs[n][s:t]),
+                      f"{n} #{b + 1}: {e.path} does not read back")
+                read += len(got_b)
+    # the severed and the local job: backup #2's files of tree 0
+    ls0 = stores["tpxd"]
+    rd2, by2 = snapshot_files(ls0, ls0.datastore.last_snapshot("host", names[0]))
+    want = {p: rd2.read_file(e) for p, e in by2.items() if e.is_file}
+    for tag in ("severed", "local"):
+        rd, by = snapshot_files(ls0, ls0.datastore.last_snapshot(
+            "host", f"{names[0]}-{tag}"))
+        check({p: (e.kind, e.link_target) for p, e in by.items()} ==
+              {p: (e.kind, e.link_target) for p, e in by2.items()},
+              f"the {tag} job's entries differ from backup #2's")
+        got_files = {p: rd.read_file(e) for p, e in by.items() if e.is_file}
+        check(got_files == want, f"the {tag} job's files differ from backup #2's")
+        read += sum(len(v) for v in got_files.values())
+    del want
+    read_s = time.perf_counter() - t0
+
+    # every stored chunk, decompressed, hashes to its name
+    t0 = time.perf_counter()
+    for kind, ls in stores.items():
+        ds = ls.datastore
+        stored = list(ds.chunks.iter_digests())
+        with ThreadPoolExecutor(8) as pool:
+            ok = list(pool.map(
+                lambda d: hashlib.sha256(ds.chunks.get(d)).digest() == d, stored))
+        check(all(ok) and seen[kind] <= set(stored),
+              f"{kind}: stored chunks != hashlib or missing indexed chunks")
+        out.setdefault("stored_chunks", {})[kind] = len(stored)
+    out["read_back_bytes"] = read
+    out["read_back_s"] = read_s
+    out["rehash_s"] = time.perf_counter() - t0
+    out["launches"] = {k: sum(r["launches"][k] for r in out["backups"])
+                       + out["severed"]["launches"][k]
+                       + out["local"]["launches"][k]
+                       for k in out["backups"][0]["launches"]}
     return out
 
 
@@ -2131,6 +2625,13 @@ def main() -> int:
         del stores
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
+    # the agent backup job over the same streams, on its own stores
+    job_root = tempfile.mkdtemp(prefix="backup-job-", dir=SCRATCH)
+    try:
+        job_line = backup_job_phase(dev, P, streams, args.seed, job_root)
+        emit(job_line)
+    finally:
+        shutil.rmtree(job_root, ignore_errors=True)
     store_launches = {k: sum(r["launches"][k] for st in store_line["stores"].values()
                              for r in st["backups"])
                       for k in ("candidate_mask", "sha256_chunks", "cuckoo_probe")}
@@ -2584,6 +3085,7 @@ def main() -> int:
          "fused_ingest_launches": fused["launches"]["cuckoo_probe"],
          "store_launches": store_launches["cuckoo_probe"],
          "mount_launches": mount_line["launches"]["cuckoo_probe"],
+         "backup_job_launches": job_line["launches"]["cuckoo_probe"],
          "index": {"launches": ix["k3_launches"],
                    "table_bytes": INDEX_BUDGET_MB << 20,
                    "batch_ms": ix["k3_ms"],
@@ -2666,7 +3168,8 @@ def main() -> int:
              "fan_in": par_nums["fan_in"]["k1"],
              "fused_ingest": fused["launches"]["candidate_mask"],
              "store": store_launches["candidate_mask"],
-             "mount": mount_line["launches"]["candidate_mask"]},
+             "mount": mount_line["launches"]["candidate_mask"],
+             "backup_job": job_line["launches"]["candidate_mask"]},
          "max_abs_err": int(k1_err > 0),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": "bytes" if k1_bound_bytes >= k1_bound_ops else "operations",
@@ -2682,7 +3185,8 @@ def main() -> int:
              "fused_ingest": fused["launches"]["sha256_chunks"],
              "store": store_launches["sha256_chunks"],
              "verification": ver_launches,
-             "mount": mount_line["launches"]["sha256_chunks"]},
+             "mount": mount_line["launches"]["sha256_chunks"],
+             "backup_job": job_line["launches"]["sha256_chunks"]},
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "plain_shape": f"size list {SHA_SIZES}, kernel {k2_small_ms} ms there",

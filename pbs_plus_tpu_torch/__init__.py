@@ -34,8 +34,14 @@ kernel's plain PyTorch version.
   byte-identical snapshots.
 - server: the verification job (``run_verification``,
   ``enqueue_verification``; K2 re-hashes stored snapshots), with copies
-  of the job record, the aRPC call layer (``arpc``) and the task UPID
-  (``proxmox``) it uses.
+  of the job record and the task UPID (``proxmox``) it uses; the agent
+  backup job (``backup_job.run_target_backup``: agent, local and s3
+  targets into a LocalStore, whose device runs K1, K2 and K3), with the
+  database, checkpoints and the S3 source.
+- arpc, agent: the aRPC fabric (mux, calls, router, the mTLS transport
+  and its plain loopback mode, AgentsManager) and the agent (agentfs,
+  snapshots, drives, AgentLifecycle with the handlers a backup job
+  calls), copies of the JAX package's.
 - mount: the mount stack (copies of the JAX package's ``Journal``,
   ``ArchiveView``, ``MutableFS``, control socket and libfuse frontend) and
   ``CommitEngine(device=)``, which commits a mutated mount as a new

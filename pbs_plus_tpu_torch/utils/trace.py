@@ -1,16 +1,18 @@
 """Histogram observations of the port.
 
 A copy of the part of the JAX package's ``utils/trace.py`` that the index
-tier, the ingest writers, the chunk cache and the aRPC mux call: ``span``
-(a timed block), ``emit`` (a pre-measured one), ``record`` (a
-histogram-only observation for hot sites) and ``enabled``, over a closed
-registry of names (``SPANS``).  The reference feeds its histograms to the
+tier, the ingest writers, the chunk cache, the aRPC mux and router and the
+backup job call: ``span`` (a timed block), ``emit`` (a pre-measured one),
+``record`` (a histogram-only observation for hot sites) and ``enabled``,
+over a closed registry of names (``SPANS``); a name registered with no
+histogram (``None``) is accepted and not observed.  The reference feeds its histograms to the
 server's metrics module; the port has no server, so they accumulate here
 (``histograms()``) and nothing of the JAX package is imported.  The
 reference's span ring, context propagation and bench-only kill switch
 are not copied: tracing is always on, span attributes are accepted and
-dropped, and ``capture``/``attached``/``headers_out`` keep the
-reference's call shapes with no context to carry.
+dropped, and ``capture``/``attached``/``wrap``/``headers_out``/
+``parse_header`` keep the reference's call shapes with no context to
+carry.
 """
 
 from __future__ import annotations
@@ -18,8 +20,12 @@ from __future__ import annotations
 import threading
 import time
 
-# name -> (histogram it feeds, constant labels or None).  The set is
-# closed: span(), emit() and record() reject unknown names.
+# the call-metadata key the reference carries its trace context under
+TRACE_HEADER = "x-pbs-trace"
+
+# name -> (histogram it feeds, constant labels or None), or None for a
+# span that feeds no histogram.  The set is closed: span(), emit() and
+# record() reject unknown names.
 SPANS = {
     # batched ingest stages (pxar/transfer.py, pxar/ingestbatch.py)
     "ingest.fused": ("pbs_plus_ingest_stage_seconds", {"stage": "fused"}),
@@ -32,8 +38,14 @@ SPANS = {
     "chunkcache.fetch": ("pbs_plus_chunk_cache_fetch_seconds", None),
     # spillable exact-confirm tier (pxar/digestlog.py)
     "digestlog.confirm": ("pbs_plus_digestlog_confirm_read_seconds", None),
-    # rpc layer (arpc/mux.py)
+    # rpc layer (arpc/mux.py, arpc/router.py)
     "mux.write_frame": ("pbs_plus_mux_frame_write_seconds", None),
+    "rpc.serve": None,
+    # the backup job (server/backup_job.py); the publish span feeds a
+    # histogram of the port's own, since the port keeps no span ring
+    "backup.session_open": ("pbs_plus_session_open_seconds",
+                            {"phase": "job"}),
+    "backup.publish": ("pbs_plus_backup_publish_seconds", None),
 }
 
 
@@ -46,7 +58,8 @@ def _series(hist: str, labels: "dict | None") -> str:
                                  for k, v in sorted(labels.items())) + "}"
 
 
-_KEYS = {name: _series(*spec) for name, spec in SPANS.items()}
+_KEYS = {name: _series(*spec) for name, spec in SPANS.items()
+         if spec is not None}
 
 _lock = threading.Lock()
 _hist: "dict[str, list]" = {}                   # guarded-by: _lock
@@ -58,6 +71,8 @@ def _check(name: str) -> None:
 
 
 def _observe(name: str, seconds: float) -> None:
+    if name not in _KEYS:
+        return
     with _lock:
         h = _hist.setdefault(_KEYS[name], [0, 0.0])
         h[0] += 1
@@ -131,6 +146,18 @@ class attached:
 
     def __exit__(self, *exc) -> bool:
         return False
+
+
+def wrap(fn):
+    """``fn`` to run on another thread under the caller's context: the
+    port carries none, so ``fn`` itself."""
+    return fn
+
+
+def parse_header(value: "str | None") -> None:
+    """The context an incoming ``TRACE_HEADER`` carries: always None,
+    since the port re-attaches none (a peer's header is ignored)."""
+    return None
 
 
 def headers_out(headers: "dict | None" = None) -> dict:

@@ -592,3 +592,112 @@ def test_mount_commit_on_card(cuda, tmp_path, monkeypatch, pbs):
     want["d/f3"] = want["d/f3"][:5000] + b"x" * 4096 + want["d/f3"][9096:]
     want["new.bin"] = _bytes(20_000, 50).tobytes()
     assert got["cuda"][0] == want
+
+
+@pytest.mark.parametrize("pbs", [False, True], ids=["tpxd", "pbs"])
+def test_backup_job_on_card(cuda, tmp_path, pbs):
+    """A whole agent backup job (port agent, aRPC over plain loopback,
+    ``run_target_backup``) into a LocalStore on the card equals the same
+    job into one on the CPU chunk for chunk and index for index (the
+    index headers' uuid and time and the snapshot time pinned), and K1,
+    K2 and K3 launch from the job's writer thread."""
+    import asyncio
+    import os
+    import time
+
+    from pbs_plus_tpu_torch.agent.lifecycle import AgentConfig, AgentLifecycle
+    from pbs_plus_tpu_torch.agent.snapshots import SnapshotManager
+    from pbs_plus_tpu_torch.arpc import AgentsManager, Router, serve
+    from pbs_plus_tpu_torch.pxar import backupproxy
+    from pbs_plus_tpu_torch.server import database
+    from pbs_plus_tpu_torch.server.backup_job import run_target_backup
+
+    src = tmp_path / "src"
+    os.makedirs(src / "d")
+    for i in range(6):
+        (src / "d" / f"f{i}").write_bytes(_bytes(1000 + 41_000 * i,
+                                                 60 + i).tobytes())
+    os.symlink("d/f1", src / "ln")
+    os.link(src / "d" / "f2", src / "hard")
+    (src / "skip.tmp").write_bytes(b"excluded")
+
+    async def job(dev):
+        db = database.Database(str(tmp_path / dev / "server.db"))
+        db.upsert_target("h", "agent", hostname="h")
+        db.upsert_backup_job(database.BackupJobRow(
+            id="j", target="h", source_path=str(src), backup_id="h",
+            exclusions=["*.tmp"], pipeline_workers=2 if pbs else 0))
+        agents = AgentsManager()
+
+        async def on_connection(conn, peer, headers):
+            sess = await agents.register(peer, headers, conn)
+            try:
+                await Router().serve_connection(conn, context=sess)
+            finally:
+                await agents.unregister(sess)
+
+        lis = await serve("127.0.0.1", 0, None, on_connection=on_connection,
+                          admit=agents.admit)
+        agent = AgentLifecycle(AgentConfig(
+            "h", "127.0.0.1", lis.sockets[0].getsockname()[1], None,
+            drive_update_interval_s=0),
+            snapshot_manager=SnapshotManager(prefer_direct=True))
+        task = asyncio.ensure_future(agent.run())
+        try:
+            await agents.wait_session("h", timeout=10)
+            store = backupproxy.LocalStore(
+                str(tmp_path / dev / "ds"), TEST_PARAMS, pbs_format=pbs,
+                dedup_index_mb=1, device=dev)
+            res = await run_target_backup(db.get_backup_job("j"), db=db,
+                                          agents=agents, store=store)
+        finally:
+            await agent.stop()
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+            lis.close()
+            db.close()
+        return res, store
+
+    class Clock:
+        def __getattr__(self, name):
+            return getattr(time, name)
+
+        @staticmethod
+        def time():
+            return 1_700_000_000.0
+
+    got = {}
+    mp = pytest.MonkeyPatch()
+    real = os.urandom
+    mp.setattr(os, "urandom", lambda n: b"\x5a" * n if n == 16 else real(n))
+    mp.setattr(time, "time_ns", lambda: 1_700_000_000 * 10**9)
+    mp.setattr(backupproxy, "time", Clock())
+    try:
+        for dev in ("cpu", "cuda"):
+            before = (rolling_hash.KERNEL.launches, sha256.KERNEL.launches,
+                      cuckoo.stats["device_probes"])
+            res, store = asyncio.run(job(dev))
+            after = (rolling_hash.KERNEL.launches, sha256.KERNEL.launches,
+                     cuckoo.stats["device_probes"])
+            if dev == "cuda":
+                assert all(a > b for a, b in zip(after, before))
+            ds = store.datastore
+            ref = ds.list_snapshots()[0]
+            rd = store.open_snapshot(ref)
+            files = {e.path: rd.read_file(e) for e in rd.entries()
+                     if e.is_file}
+            idx = [bytes(open(os.path.join(ds.snapshot_dir(ref), n),
+                              "rb").read())
+                   for n in sorted(os.listdir(ds.snapshot_dir(ref)))
+                   if n.endswith(("idx", "didx"))]
+            man = dict(res.manifest)
+            man.pop("chunker_backend"), man.pop("created_unix")
+            got[dev] = (res.errors, res.files, res.bytes_total, man, files,
+                        idx, {d: ds.chunks.get_raw(d)
+                              for d in ds.chunks.iter_digests()})
+    finally:
+        mp.undo()
+    assert got["cuda"] == got["cpu"]
+    assert got["cuda"][0] == [] and got["cuda"][1] == 6
+    assert got["cuda"][4] == {f"d/f{i}": (src / "d" / f"f{i}").read_bytes()
+                              for i in range(6)}

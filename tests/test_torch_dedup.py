@@ -37,6 +37,7 @@ from pbs_plus_tpu_torch.pxar import (DedupIndex, IngestCollector, SimilarityInde
 from pbs_plus_tpu_torch.pxar.backupproxy import LocalStore
 from pbs_plus_tpu_torch.pxar.datastore import ChunkStore, Datastore
 from pbs_plus_tpu_torch.pxar.pbsstore import PBSConfig, PBSStore
+from pbs_plus_tpu_torch.server import backup_job as port_backup_job
 from pbs_plus_tpu_torch.server.verification_job import (enqueue_verification,
                                                         run_verification)
 from pbs_plus_tpu_torch.sidecar import DedupService, serve_sidecar
@@ -275,7 +276,7 @@ def test_port_imports_without_jax_or_reference():
     r = subprocess.run([sys.executable, "-c", _GATE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 79
+    assert int(r.stdout.split()[-1]) >= 93
 
 
 _STORE_GATE = r"""
@@ -345,6 +346,96 @@ def test_tpxd_store_and_verification_run_without_jax_or_reference():
     assert r.stdout.split()[-1] == "ok"
 
 
+_JOB_GATE = r"""
+import asyncio, hashlib, os, sys, tempfile
+
+_BLOCKED = ("jax", "jaxlib", "pbs_plus_tpu")
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in _BLOCKED:
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+from pbs_plus_tpu_torch.agent.lifecycle import AgentConfig, AgentLifecycle
+from pbs_plus_tpu_torch.agent.snapshots import SnapshotManager
+from pbs_plus_tpu_torch.arpc import AgentsManager, Router, serve
+from pbs_plus_tpu_torch.chunker.spec import ChunkerParams
+from pbs_plus_tpu_torch.pxar.backupproxy import LocalStore
+from pbs_plus_tpu_torch.server import database
+from pbs_plus_tpu_torch.server.backup_job import run_target_backup
+from pbs_plus_tpu_torch.utils import failpoints
+
+tmp = tempfile.mkdtemp()
+src = os.path.join(tmp, "src")
+os.makedirs(os.path.join(src, "d"))
+files = {f"d/f{i}": os.urandom(2000 + 700 * i) for i in range(6)}
+for p, data in files.items():
+    with open(os.path.join(src, p), "wb") as f:
+        f.write(data)
+os.symlink("d/f0", os.path.join(src, "ln"))
+
+async def main():
+    db = database.Database(os.path.join(tmp, "server.db"))
+    db.upsert_target("h", "agent", hostname="h")
+    db.upsert_backup_job(database.BackupJobRow(
+        id="j", target="h", source_path=src, backup_id="h"))
+    agents = AgentsManager()
+
+    async def on_connection(conn, peer, headers):
+        sess = await agents.register(peer, headers, conn)
+        try:
+            await Router().serve_connection(conn, context=sess)
+        finally:
+            await agents.unregister(sess)
+
+    lis = await serve("127.0.0.1", 0, None, on_connection=on_connection,
+                      admit=agents.admit)
+    agent = AgentLifecycle(AgentConfig(
+        "h", "127.0.0.1", lis.sockets[0].getsockname()[1], None,
+        drive_update_interval_s=0),
+        snapshot_manager=SnapshotManager(prefer_direct=True))
+    task = asyncio.ensure_future(agent.run())
+    await agents.wait_session("h", timeout=10)
+    store = LocalStore(os.path.join(tmp, "ds"), ChunkerParams(1024, 64, 1024),
+                       dedup_index_mb=1, device="cpu")
+    # the fifth file's stream dropped: the retry resumes from a checkpoint
+    with failpoints.armed("backup.file.stream", "drop", nth=9) as fp:
+        res = await run_target_backup(
+            db.get_backup_job("j"), db=db, agents=agents, store=store,
+            attempts=2, checkpoint_interval="1c")
+    assert fp.fires == 1 and res.errors == [] and res.files == 6, res
+    assert res.manifest["resume"]["files_skipped"] >= 1
+    rd = store.open_snapshot(store.datastore.list_snapshots()[0])
+    assert {e.path: rd.read_file(e) for e in rd.entries() if e.is_file} \
+        == files
+    assert rd.lookup("ln").link_target == "d/f0"
+    await agent.stop()
+    task.cancel()
+    await asyncio.gather(task, return_exceptions=True)
+    lis.close()
+    db.close()
+
+asyncio.run(main())
+bad = [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_backup_job_runs_without_jax_or_reference():
+    """The port's agent backup job end to end (port agent, the aRPC
+    envelopes over plain loopback, a dropped stream resumed from its
+    checkpoint, a tpxd LocalStore on the CPU) with only jax and the
+    reference blocked: the envelopes need msgpack, which the main gate
+    blocks."""
+    r = subprocess.run([sys.executable, "-c", _JOB_GATE], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
+
+
 def _imports_of(path):
     """Every module an ``import``/``from`` statement of ``path`` names,
     at any depth (inside functions too); relative imports stay
@@ -362,7 +453,7 @@ def test_no_import_of_jax_or_reference_anywhere_in_the_port():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for dp, _dn, fn in os.walk(os.path.join(REPO, "pbs_plus_tpu_torch")):
         files += [os.path.join(dp, f) for f in fn if f.endswith(".py")]
-    assert len(files) >= 80
+    assert len(files) >= 94
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imports_of(f)
            if m.split(".")[0] in ("jax", "jaxlib", "pbs_plus_tpu")]
@@ -418,6 +509,8 @@ def test_cuda_request_raises_without_card(tmp_path):
                                        datastore="d", auth_token="t"), P),
             lambda: port_main(["mount", "--store", str(tmp_path / "ms"),
                                "--mount-state", str(tmp_path / "mst"),
-                               "--socket", str(tmp_path / "m.sock")])):
+                               "--socket", str(tmp_path / "m.sock")]),
+            lambda: port_backup_job.make_chunker_factory("cuda")(P),
+            lambda: port_backup_job.make_batch_hasher("cuda")([b"abc"])):
         with pytest.raises(CudaUnavailableError):
             call()
