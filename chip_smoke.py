@@ -76,6 +76,21 @@ runs one phase per line:
               a store, seconds a job by layer (agent read_at and send,
               the writer's busy time, the publish), K1/K2/K3 launches,
               new/known/reused chunks, bytes on disk
+   server     the server shell: one port Server at the production
+              defaults (tpxd, chunker "cuda", 4 MiB chunks, keep_last=1)
+              started (aRPC over mTLS, the job socket, the scheduler and
+              prune loops); 8 agents bootstrapped by token and CSR and
+              admitted by their pinned certificates; backup #1 of the
+              backup_job phase's 8 trees fired by one scheduler tick (a
+              second tick fires nothing), a scheduled verification on
+              K2, backup #2 after 4 writes of 4 KiB a tree queued over
+              the job socket, prune and GC with the swept and kept
+              digests probed through K3, the metrics render, stop();
+              every kept file read back, every chunk re-hashed, new/known
+              against the index, every job and task row success; MiB/s a
+              backup, the job latency histograms' p50/p99, tick, socket,
+              verification, prune/GC/discard and render times, the
+              device table's update, K1/K2/K3 launches
 7. sidecar    the route an unmodified backup server takes: DedupService on
               the card, 8 client threads streaming the 8 streams through
               Chunk in 4 MiB pages, InsertIndex of backup #1, backup #2
@@ -129,6 +144,7 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import hashlib
 import json
 import os
@@ -571,6 +587,17 @@ class SliceReader:
         return out
 
 
+async def stop_lifecycles(lifecycles) -> None:
+    """Stop the agents, then cancel and await every other task of their
+    event loop."""
+    for lc in lifecycles:
+        await lc.stop()
+    others = [t for t in asyncio.all_tasks() if t is not asyncio.current_task()]
+    for t in others:
+        t.cancel()
+    await asyncio.gather(*others, return_exceptions=True)
+
+
 def store_files(n: int, seed: int) -> list[tuple[int, int]]:
     """A stream of ``n`` bytes cut into files of log-uniform sizes in
     [STORE_FILE_MIN, STORE_FILE_MAX] (the last one shorter)."""
@@ -751,7 +778,6 @@ def verification_phase(dev, stores: dict, clock_hz: float) -> dict:
     on a minimal server shell: whole files re-hashed by K2 in the tpxd
     store (its entries carry file digests), chunks in 64 MiB batches in
     the pbs one; then one byte flipped in one payload chunk file of each."""
-    import asyncio
     from pbs_plus_tpu_torch.ops import sha256
     from pbs_plus_tpu_torch.pxar.transfer import SplitReader
     from pbs_plus_tpu_torch.server.verification_job import (pick_snapshots,
@@ -1097,7 +1123,6 @@ def backup_job_phase(dev, P, streams: dict, seed: int, root: str) -> dict:
     against the indexes, the excluded file is absent and the hard link
     is stored once; the severed job's and the local job's files equal
     backup #2's of the same tree; K1, K2 and K3 launch under the jobs."""
-    import asyncio
     from pbs_plus_tpu_torch.agent import agentfs, snapshots
     from pbs_plus_tpu_torch.agent.lifecycle import AgentConfig, AgentLifecycle
     from pbs_plus_tpu_torch.arpc import (AgentsManager, Router, TlsClientConfig,
@@ -1270,23 +1295,13 @@ def backup_job_phase(dev, P, streams: dict, seed: int, root: str) -> dict:
     for lc in lifecycles.values():
         asyncio.run_coroutine_threadsafe(lc.run(), agent_loop)
 
-    async def stop_agents():
-        for lc in lifecycles.values():
-            await lc.stop()
-        for t in asyncio.all_tasks():
-            if t is not asyncio.current_task():
-                t.cancel()
-        await asyncio.gather(*(t for t in asyncio.all_tasks()
-                               if t is not asyncio.current_task()),
-                             return_exceptions=True)
-
     async def shutdown():
         # the agents stop on their loop while the server's runs, so each
         # side sees the other's close
         try:
             await asyncio.wait_for(asyncio.wrap_future(
-                asyncio.run_coroutine_threadsafe(stop_agents(), agent_loop)),
-                60)
+                asyncio.run_coroutine_threadsafe(
+                    stop_lifecycles(lifecycles.values()), agent_loop)), 60)
         finally:
             await stop_server()
 
@@ -1327,20 +1342,23 @@ def backup_job_phase(dev, P, streams: dict, seed: int, root: str) -> dict:
         rolling_hash.KERNEL.launches = 0
         sha256.KERNEL.launches = 0
         cuckoo.stats["device_probes"] = 0
-        hist0 = trace.histograms()
+        pubs = []
+
+        def on_close(rec):
+            # the publish span feeds no histogram: its closes are read here
+            if rec["name"] == "backup.publish":
+                pubs.append(rec["dur_s"])
+        trace.subscribe(on_close)
         t = time.perf_counter()
-        got = loop.run_until_complete(all_rows())
+        try:
+            got = loop.run_until_complete(all_rows())
+        finally:
+            trace.unsubscribe(on_close)
         wall = time.perf_counter() - t
-        hist = trace.histograms()
         launches = {"candidate_mask": rolling_hash.KERNEL.launches,
                     "sha256_chunks": sha256.KERNEL.launches,
                     "cuckoo_probe": cuckoo.stats["device_probes"]}
-        pub = hist.get("pbs_plus_backup_publish_seconds",
-                       {"sum_s": 0.0, "count": 0})
-        pub0 = hist0.get("pbs_plus_backup_publish_seconds",
-                         {"sum_s": 0.0, "count": 0})
-        return got, wall, launches, (pub["sum_s"] - pub0["sum_s"],
-                                     pub["count"] - pub0["count"])
+        return got, wall, launches, (sum(pubs), len(pubs))
 
     out = {"phase": "backup_job", "transport": transport,
            "params": [P.avg_size, P.min_size, P.max_size],
@@ -1551,6 +1569,469 @@ def backup_job_phase(dev, P, streams: dict, seed: int, root: str) -> dict:
                        + out["severed"]["launches"][k]
                        + out["local"]["launches"][k]
                        for k in out["backups"][0]["launches"]}
+    return out
+
+
+SERVER_NOW = (2026, 7, 29, 2, 0, 10)   # past the rows' next 02:00 event
+
+
+def hist_quantiles(text: str, name: str, labels: str) -> dict:
+    """p50/p99 of the histogram child ``name{labels}`` from a Prometheus
+    render: its cumulative ``le`` counts, interpolated within a bucket."""
+    from pbs_plus_tpu_torch.server.metrics import quantile_from_counts
+    edges, cum = [], []
+    prefix = f"{name}_bucket{{{labels},le=\""
+    for line in text.splitlines():
+        if line.startswith(prefix):
+            le, _, v = line[len(prefix):].partition("\"} ")
+            if le != "+Inf":
+                edges.append(float(le))
+            cum.append(int(float(v)))
+    counts = [b - a for a, b in zip([0] + cum[:-1], cum)]
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(f"{name}_sum{{{labels}}} "):
+            total = float(line.split()[-1])
+    n = cum[-1] if cum else 0
+    # the top finite bucket is 10 s: a quantile past it reads as 10 s
+    return {"count": n, "mean_s": total / n if n else 0.0,
+            "p50_s": quantile_from_counts(tuple(edges), counts, 0.5),
+            "p99_s": quantile_from_counts(tuple(edges), counts, 0.99),
+            "top_bucket_s": edges[-1] if edges else None}
+
+
+def server_phase(dev, P, streams: dict, seed: int, root: str, trees_root: str,
+                 clock_hz: float) -> dict:
+    """The port's server shell on the card: one ``Server(ServerConfig(...),
+    device=dev)`` at the production defaults (tpxd layout, chunker
+    "cuda", 4 MiB average chunks, the LocalStore's and the jobs
+    manager's defaults, prune_keep_last=1) under ``root``; ``start()``
+    (aRPC over mTLS on an ephemeral loopback port, the job socket, the
+    scheduler and prune loops, stale-mount reaping off the loop); 8 port
+    AgentLifecycles bootstrapped through 8 tokens and CSRs that
+    ``bootstrap_agent`` signs, admitted by their pinned certificates;
+    backup #1 of the backup_job phase's 8 agent trees fired by one
+    scheduler tick (a second tick at the same time enqueues nothing); a
+    scheduled verification; 4 writes of 4 KiB in each tree and backup #2
+    queued over the job socket; prune and GC at keep_last=1, then the
+    swept and kept digests probed through K3; the metrics render;
+    ``stop()``."""
+    import datetime as dt
+    from cryptography import x509
+    from cryptography.hazmat.primitives.serialization import Encoding
+    from pbs_plus_tpu_torch.agent.lifecycle import AgentConfig, AgentLifecycle
+    from pbs_plus_tpu_torch.agent.snapshots import SnapshotManager
+    from pbs_plus_tpu_torch.arpc import TlsClientConfig
+    from pbs_plus_tpu_torch.ops import cuckoo, rolling_hash, sha256
+    from pbs_plus_tpu_torch.pxar.transfer import SplitReader
+    from pbs_plus_tpu_torch.server import database
+    from pbs_plus_tpu_torch.server.jobrpc import call_job_rpc
+    from pbs_plus_tpu_torch.server.metrics import MetricsRegistry
+    from pbs_plus_tpu_torch.server.store import Server, ServerConfig
+    from pbs_plus_tpu_torch.utils import mtls
+
+    t_phase = time.perf_counter()
+    names = sorted(streams)
+    trees = {n: os.path.join(trees_root, n) for n in names}
+    rewritten = False
+    if not all(os.path.isdir(os.path.join(trees[n], "d")) for n in names):
+        # the backup_job phase's trees are gone: the streams cut into files
+        rewritten = True
+        for k, n in enumerate(names):
+            d = os.path.join(trees[n], "d")
+            os.makedirs(d, exist_ok=True)
+            for i, (s, e) in enumerate(store_files(STREAM_BYTES,
+                                                   seed + 100 + k)):
+                streams[n][s:e].tofile(os.path.join(d, f"f{i:05d}"))
+            with open(os.path.join(trees[n], "skip.tmp"), "wb") as f:
+                f.write(b"excluded by the job row" * 100)
+
+    loop = asyncio.new_event_loop()
+    agent_loop = asyncio.new_event_loop()
+    agent_thread = threading.Thread(target=agent_loop.run_forever,
+                                    name="server-agents", daemon=True)
+    agent_thread.start()
+    run = loop.run_until_complete
+    server = Server(ServerConfig(
+        state_dir=os.path.join(root, "state"),
+        cert_dir=os.path.join(root, "certs"),
+        datastore_dir=os.path.join(root, "ds"), chunk_avg=P.avg_size,
+        prune_keep_last=1, prune_schedule="yearly"), device=dev)
+    check(server.config.chunker == "cuda"
+          and server.config.datastore_format == "tpxd"
+          and (CONFIG is not None
+               or ServerConfig("", "", "").chunk_avg == P.avg_size),
+          "the server runs the production defaults")
+    # the phase ticks the scheduler by hand: its own loop ticks once at
+    # start (no rows yet) and then not within the phase
+    server.scheduler.tick_s = 3600.0
+    ds = server.datastore.datastore
+    lifecycles = {}
+    out = {"phase": "server", "params": [P.avg_size, P.min_size, P.max_size],
+           "trees_rewritten": rewritten,
+           "max_concurrent": server.jobs.max_concurrent}
+
+    def launches():
+        return {"candidate_mask": rolling_hash.KERNEL.launches,
+                "sha256_chunks": sha256.KERNEL.launches,
+                "cuckoo_probe": cuckoo.stats["device_probes"]}
+
+    def since(a):
+        b = launches()
+        return {k: b[k] - a[k] for k in a}
+
+    def drain():
+        """Drain the jobs plane; the most jobs that held a slot at once."""
+        peak = [0]
+
+        async def watch():
+            while server.jobs.active_count:
+                peak[0] = max(peak[0], server.jobs.running_count)
+                await asyncio.sleep(0.05)
+
+        async def both():
+            await asyncio.gather(watch(), server.job_queue.drain(timeout=900))
+        t = time.perf_counter()
+        run(both())
+        return time.perf_counter() - t, peak[0]
+
+    def tree_files(n):
+        d = os.path.join(trees[n], "d")
+        return sorted(os.listdir(d))
+
+    def counts_hold(tag, seen):
+        """new/known/reused against the index: the new chunks of each
+        group's newest snapshot are the digests no earlier snapshot had."""
+        new = known = reused = chunks = 0
+        digs = set()
+        for n in names:
+            ref = ds.last_snapshot("host", n)
+            man = ds.load_manifest(ref)
+            st = man["stats"]
+            new += st["new_chunks"]
+            known += st["known_chunks"]
+            reused += st["ref_chunks"]
+            chunks += man["meta_chunks"] + man["payload_chunks"]
+            for idx in ds.load_indexes(ref):
+                digs.update(idx.digest(i) for i in range(len(idx)))
+        check(new == len(digs - seen) and new + known + reused == chunks,
+              f"server {tag}: new {new}, known {known}, reused {reused}, "
+              f"chunks {chunks}, novel digests {len(digs - seen)}")
+        return digs, {"new_chunks": new, "known_chunks": known,
+                      "reused_chunks": reused, "chunks": chunks}
+
+    try:
+        t = time.perf_counter()
+        run(server.start())
+        out["start_ms"] = (time.perf_counter() - t) * 1e3
+        sock = os.path.join(server.config.state_dir, "job.sock")
+        check(os.path.exists(sock) and len(server._tasks) == 2
+              and server.mount_service is not None,
+              "start(): the job socket, the scheduler and prune loops, the "
+              "mount service")
+
+        # bootstrap: a token and a CSR an agent, admitted by pinned DER
+        ders = {}
+        for n in names:
+            tid, secret = server.issue_bootstrap_token()
+            key = mtls.generate_private_key()
+            cert = server.bootstrap_agent(n, mtls.make_csr(key, n), tid, secret)
+            paths = [os.path.join(root, f"{n}.{ext}") for ext in ("pem", "key")]
+            for p, blob in zip(paths, (cert, mtls.key_pem(key))):
+                with open(p, "wb") as f:
+                    f.write(blob)
+            ders[n] = x509.load_pem_x509_certificate(cert).public_bytes(
+                Encoding.DER)
+            lifecycles[n] = AgentLifecycle(
+                AgentConfig(hostname=n, server_host="127.0.0.1",
+                            server_port=server.config.arpc_port,
+                            tls=TlsClientConfig(*paths,
+                                                server.certs.ca_cert_path),
+                            job_isolation="task", drive_update_interval_s=0),
+                snapshot_manager=SnapshotManager(prefer_direct=True))
+            asyncio.run_coroutine_threadsafe(lifecycles[n].run(), agent_loop)
+
+        async def registered():
+            for n in names:
+                await server.agents.wait_session(n, timeout=60)
+        run(registered())
+        pinned = [run(server._is_expected_host(n, ders[n])) for n in names]
+        crossed = run(server._is_expected_host(names[0], ders[names[1]]))
+        check(all(pinned) and not crossed,
+              f"admission by pinned DER: {pinned}, crossed {crossed}")
+
+        for k, n in enumerate(names):
+            server.db.upsert_backup_job(database.BackupJobRow(
+                id=f"srv-{k}", target=n, source_path=trees[n], backup_id=n,
+                schedule="02:00", chunker="cuda", exclusions=["*.tmp"]))
+        now = dt.datetime(*SERVER_NOW)
+
+        # backup #1 from one scheduler tick
+        rolling_hash.KERNEL.launches = 0
+        sha256.KERNEL.launches = 0
+        cuckoo.stats["device_probes"] = 0
+        l0 = launches()
+        enq0 = server.jobs.stats["enqueued"]
+        t = time.perf_counter()
+        run(server.scheduler.tick(now))
+        tick_ms = (time.perf_counter() - t) * 1e3
+        fired = server.jobs.stats["enqueued"] - enq0
+        run(server.scheduler.tick(now))
+        again = server.jobs.stats["enqueued"] - enq0 - fired
+        check(fired == len(names) and again == 0,
+              f"one tick fired {fired} backups, the second {again}")
+        wall1, peak1 = drain()
+        check(peak1 == len(names),
+              f"backup #1: {peak1} jobs held a slot at once, want {len(names)}")
+        b1_launches = since(l0)
+        seen, stats1 = counts_hold("backup #1", set())
+
+        # a scheduled verification over the store, on K2
+        server.db.upsert_verification_job("srv-verify", schedule="02:00",
+                                          sample_rate=1.0)
+        l0 = launches()
+        t = time.perf_counter()
+        run(server.scheduler.tick(now))
+        drain()
+        verify_s = time.perf_counter() - t
+        v_launches = since(l0)
+        vrow = server.db.get_verification_job("srv-verify")
+        vrep = json.loads(vrow["last_report"])
+        check(vrow["last_status"] == "success" and vrep["corrupt"] == []
+              and vrep["checked"] > 0,
+              f"scheduled verification: {vrow['last_status']}, "
+              f"{ {k: vrep[k] for k in ('checked', 'corrupt', 'snapshots')} }")
+        check(v_launches["sha256_chunks"] > 0,
+              f"K2 did not launch under the scheduled verification: "
+              f"{v_launches}")
+        # hashlib over the same files (the sources, unchanged since #1),
+        # and K2's bound: the longest file's chain at the per-round floor
+        lens, t_hash = [], 0.0
+        for snap in vrep["snapshots"]:
+            n = snap.split("/")[1]
+            for f in tree_files(n):
+                with open(os.path.join(trees[n], "d", f), "rb") as fh:
+                    data = fh.read()
+                t = time.perf_counter()
+                hashlib.sha256(data).digest()
+                t_hash += time.perf_counter() - t
+                lens.append(len(data))
+
+        # 4 writes of 4 KiB in each tree, then backup #2 over the job socket
+        rng = np.random.default_rng(seed + 900)
+        for n in names:
+            fs = tree_files(n)
+            for _ in range(WRITES):
+                p = os.path.join(trees[n], "d", fs[int(rng.integers(len(fs)))])
+                size = os.path.getsize(p)
+                with open(p, "r+b") as f:
+                    f.seek(int(rng.integers(0, max(1, size - WRITE_BYTES))))
+                    f.write(rng.bytes(min(WRITE_BYTES, size)))
+        l0 = launches()
+        rtts = []
+
+        async def queue_all():
+            for k in range(len(names)):
+                t = time.perf_counter()
+                resp = await call_job_rpc(sock, {"op": "backup_queue",
+                                                 "job_id": f"srv-{k}"})
+                rtts.append((time.perf_counter() - t) * 1e3)
+                check(resp == {"ok": True, "started": True},
+                      f"job socket backup_queue srv-{k}: {resp}")
+        t = time.perf_counter()
+        run(queue_all())
+        wall2, peak2 = drain()
+        wall2 = time.perf_counter() - t
+        b2_launches = since(l0)
+        seen2, stats2 = counts_hold("backup #2", seen)
+        check(stats2["known_chunks"] > 0
+              and stats2["new_chunks"] < stats2["chunks"] // 2,
+              f"backup #2 did not find the unchanged chunks known: {stats2}")
+
+        async def ask():
+            out = []
+            for k in range(len(names)):
+                t = time.perf_counter()
+                out.append(await call_job_rpc(sock, {"op": "status",
+                                                     "job_id": f"srv-{k}"}))
+                rtts.append((time.perf_counter() - t) * 1e3)
+            out.append(await call_job_rpc(sock, {"op": "list"}))
+            return out
+        answers = run(ask())
+        check(all(a["ok"] and a["job"]["last_status"] == "success"
+                  and not a["job"]["running"] for a in answers[:-1])
+              and sorted((j["id"], j["last_status"], j["running"])
+                         for j in answers[-1]["jobs"])
+              == [(f"srv-{k}", "success", False) for k in range(len(names))],
+              f"job socket status/list: {answers}")
+        tasks = server.db.list_tasks(limit=1000)
+        check(not server.db.list_running_tasks()
+              and sorted(t["status"] for t in tasks)
+              == ["success"] * (2 * len(names) + 1),
+              f"task rows: {sorted(t['status'] for t in tasks)}")
+
+        # prune and GC: backup #1's snapshots go, their own chunks are
+        # swept and their digests discarded from the device table
+        before = set(ds.chunks.iter_digests())
+        first = sorted(str(ds.list_snapshots("host", n)[0]) for n in names)
+        idx = ds.chunks.index
+        timing = {"prune_s": 0.0, "sweep_s": 0.0, "discard_s": 0.0,
+                  "discarded": 0}
+        tlock = threading.Lock()
+
+        def timed_method(obj, name, key, count=False):
+            orig = getattr(obj, name)
+
+            def wrapped(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return orig(*a, **kw)
+                finally:
+                    with tlock:
+                        timing[key] += time.perf_counter() - t
+                        if count:
+                            timing["discarded"] += len(a[0])
+            setattr(obj, name, wrapped)
+        timed_method(ds, "remove_snapshot", "prune_s")
+        timed_method(ds.chunks, "sweep", "sweep_s")
+        timed_method(idx, "discard_many_acked", "discard_s", count=True)
+        t = time.perf_counter()
+        rep = run(server.run_prune(gc_grace_s=0.0))
+        run_prune_s = time.perf_counter() - t
+        for obj, name in ((ds, "remove_snapshot"), (ds.chunks, "sweep"),
+                          (idx, "discard_many_acked")):
+            delattr(obj, name)
+        after = set(ds.chunks.iter_digests())
+        swept = sorted(before - after)
+        kept = sorted(after)
+        check(sorted(rep.removed) == first,
+              f"prune removed {rep.removed}, want backup #1's {first}")
+        check(all(len(ds.list_snapshots("host", n)) == 1 for n in names)
+              and rep.chunks_removed == len(swept) > 0
+              and not (seen2 - after) and not (set(swept) & seen2),
+              f"GC: removed {rep.chunks_removed}, swept {len(swept)}, "
+              f"live digests missing {len(seen2 - after)}")
+        up0 = dict(cuckoo.stats)
+        l0 = launches()
+        t = time.perf_counter()
+        verdicts = idx.probe_batch(swept + kept)
+        probe_ms = (time.perf_counter() - t) * 1e3
+        probe_launches = since(l0)
+        check(verdicts == [False] * len(swept) + [True] * len(kept),
+              f"after GC: {sum(verdicts[:len(swept)])} swept digests probe "
+              f"present, {len(kept) - sum(verdicts[len(swept):])} kept absent")
+        check(probe_launches["cuckoo_probe"] > 0,
+              f"K3 did not launch on the probe after GC: {probe_launches}")
+        table = {k: cuckoo.stats[k] - up0[k]
+                 for k in ("table_uploads", "row_uploads", "upload_bytes")}
+
+        # every file of every kept snapshot reads back as its source, and
+        # every stored chunk re-hashes to its name
+        t = time.perf_counter()
+        read = 0
+        for n in names:
+            rd = SplitReader.open_snapshot(ds, ds.last_snapshot("host", n))
+            ents = [e for e in rd.entries() if e.is_file]
+            check("skip.tmp" not in {e.path for e in rd.entries()}
+                  and [e.path for e in ents]
+                  == [f"d/{f}" for f in tree_files(n)],
+                  f"server {n}: entries of the kept snapshot")
+            for e in ents:
+                got = rd.read_file(e)
+                with open(os.path.join(trees[n], e.path), "rb") as fh:
+                    check(got == fh.read(), f"server {n}: {e.path} does not "
+                                            "read back")
+                read += len(got)
+        read_s = time.perf_counter() - t
+        t = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            ok = list(pool.map(
+                lambda d: hashlib.sha256(ds.chunks.get(d)).digest() == d,
+                kept))
+        check(all(ok), "server: a stored chunk != hashlib")
+        rehash_s = time.perf_counter() - t
+
+        # the metrics render
+        t = time.perf_counter()
+        text = MetricsRegistry(server).render()
+        render_ms = (time.perf_counter() - t) * 1e3
+        gauges = {}
+        for line in text.splitlines():
+            for g in ("pbs_plus_dedup_index_probes_total",
+                      "pbs_plus_dedup_index_inserts_total",
+                      "pbs_plus_dedup_index_discards_total"):
+                if line.startswith(g + " "):
+                    gauges[g] = float(line.split()[-1])
+        lat = {h: hist_quantiles(text, f"pbs_plus_job_{h}_seconds",
+                                 'kind="backup"')
+               for h in ("enqueue_to_grant", "grant_to_publish",
+                         "enqueue_to_publish")}
+        check(len(gauges) == 3 and all(v > 0 for v in gauges.values()),
+              f"the render's index counters: {gauges}")
+        check(lat["grant_to_publish"]["count"] == 2 * len(names),
+              f"grant_to_publish count {lat['grant_to_publish']['count']}")
+        total = {k: b1_launches[k] + v_launches[k] + b2_launches[k]
+                 + probe_launches[k] for k in b1_launches}
+        check(all(b1_launches[k] > 0 and b2_launches[k] > 0
+                  for k in b1_launches),
+              f"a kernel did not launch under the server: #1 {b1_launches}, "
+              f"#2 {b2_launches}")
+        mib = len(names) * STREAM_BYTES / 2**20
+        out.update({
+            "transport": "mtls", "agents": len(names),
+            "tick_ms": tick_ms, "fired": fired, "second_tick_fired": again,
+            "backups": [
+                {"backup": 1, "via": "scheduler tick", "wall_s": wall1,
+                 "mib_s": mib / wall1, "peak_running": peak1,
+                 "launches": b1_launches, **stats1},
+                {"backup": 2, "via": "job socket", "wall_s": wall2,
+                 "mib_s": mib / wall2, "peak_running": peak2,
+                 "launches": b2_launches, **stats2}],
+            "job_socket_rtt_ms": pct(rtts),
+            "latency": lat,
+            "verification": {
+                "seconds": verify_s, "checked": vrep["checked"],
+                "snapshots": vrep["snapshots"], "bytes": sum(lens),
+                "hashlib_s": t_hash, "launches": v_launches,
+                "k2_bound_ms": k2_chain_ms(max(lens), clock_hz)},
+            "prune": {"run_prune_s": run_prune_s, "prune_s": timing["prune_s"],
+                      "gc_s": run_prune_s - timing["prune_s"],
+                      "sweep_s": timing["sweep_s"],
+                      "discard_s": timing["discard_s"],
+                      "digests_discarded": timing["discarded"],
+                      "snapshots_removed": len(rep.removed),
+                      "chunks_removed": rep.chunks_removed,
+                      "bytes_freed": rep.bytes_freed,
+                      "probe_ms": probe_ms, "probed": len(verdicts),
+                      "device_table": table,
+                      "device_table_update": (
+                          "whole upload" if table["table_uploads"]
+                          else "row copies" if table["row_uploads"]
+                          else "none")},
+            "render_ms": render_ms, "render_lines": len(text.splitlines()),
+            "render_index": gauges,
+            "read_back_bytes": read, "read_back_s": read_s,
+            "rehash_s": rehash_s, "stored_chunks": len(kept),
+            "launches": total})
+    finally:
+        async def agents_stopped():
+            await asyncio.wait_for(asyncio.wrap_future(
+                asyncio.run_coroutine_threadsafe(
+                    stop_lifecycles(lifecycles.values()), agent_loop)), 60)
+        try:
+            run(agents_stopped())
+        finally:
+            t = time.perf_counter()
+            run(server.stop())
+            out["stop_ms"] = (time.perf_counter() - t) * 1e3
+            agent_loop.call_soon_threadsafe(agent_loop.stop)
+            agent_thread.join(30)
+            agent_loop.close()
+            loop.close()
+    check(not server.job_rpc._srv.is_serving() and not os.path.exists(sock)
+          and all(t.done() for t in server._tasks),
+          "stop(): the job socket closed and the tasks ended")
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2630,6 +3111,15 @@ def main() -> int:
     try:
         job_line = backup_job_phase(dev, P, streams, args.seed, job_root)
         emit(job_line)
+        # the server shell over the same agent trees, on its own store
+        server_root = tempfile.mkdtemp(prefix="server-", dir=SCRATCH)
+        try:
+            server_line = server_phase(dev, P, streams, args.seed, server_root,
+                                       os.path.join(job_root, "agents"),
+                                       clock_hz)
+            emit(server_line)
+        finally:
+            shutil.rmtree(server_root, ignore_errors=True)
     finally:
         shutil.rmtree(job_root, ignore_errors=True)
     store_launches = {k: sum(r["launches"][k] for st in store_line["stores"].values()
@@ -3086,6 +3576,7 @@ def main() -> int:
          "store_launches": store_launches["cuckoo_probe"],
          "mount_launches": mount_line["launches"]["cuckoo_probe"],
          "backup_job_launches": job_line["launches"]["cuckoo_probe"],
+         "server_launches": server_line["launches"]["cuckoo_probe"],
          "index": {"launches": ix["k3_launches"],
                    "table_bytes": INDEX_BUDGET_MB << 20,
                    "batch_ms": ix["k3_ms"],
@@ -3169,7 +3660,8 @@ def main() -> int:
              "fused_ingest": fused["launches"]["candidate_mask"],
              "store": store_launches["candidate_mask"],
              "mount": mount_line["launches"]["candidate_mask"],
-             "backup_job": job_line["launches"]["candidate_mask"]},
+             "backup_job": job_line["launches"]["candidate_mask"],
+             "server": server_line["launches"]["candidate_mask"]},
          "max_abs_err": int(k1_err > 0),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": "bytes" if k1_bound_bytes >= k1_bound_ops else "operations",
@@ -3186,7 +3678,8 @@ def main() -> int:
              "store": store_launches["sha256_chunks"],
              "verification": ver_launches,
              "mount": mount_line["launches"]["sha256_chunks"],
-             "backup_job": job_line["launches"]["sha256_chunks"]},
+             "backup_job": job_line["launches"]["sha256_chunks"],
+             "server": server_line["launches"]["sha256_chunks"]},
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "plain_shape": f"size list {SHA_SIZES}, kernel {k2_small_ms} ms there",

@@ -1,5 +1,6 @@
 """Command line of the port: ``python -m pbs_plus_tpu_torch sidecar``,
-``index-shard``, ``dryrun-multichip``, ``mount`` and ``commit``.
+``index-shard``, ``dryrun-multichip``, ``mount``, ``commit`` and
+``job``.
 
     python -m pbs_plus_tpu_torch sidecar --listen 127.0.0.1:18900 \\
         --chunk-avg 4194304 --device cuda
@@ -33,6 +34,18 @@ it as a new snapshot: the changed files are cut (K1), digested (K2),
 probed against the store's index (K3) and re-verified (K2) on the card.
 The flags are the JAX package's ``mount``/``commit`` flags, plus
 ``--device``.
+
+    python -m pbs_plus_tpu_torch job backup --socket /srv/state/job.sock \
+        --id nightly
+    python -m pbs_plus_tpu_torch job status --socket /srv/state/job.sock \
+        --id nightly
+    python -m pbs_plus_tpu_torch job list --socket /srv/state/job.sock
+
+queues a backup job, or reads one job's row or the list of jobs, over
+a running server's job socket (``<state_dir>/job.sock`` of a port
+``Server`` or a JAX one: the wire is the same); it prints the answer as
+JSON and exits 1 where the answer is not ok.  ``restore`` is accepted
+and a port server answers that the restore job is not ported yet.
 """
 
 from __future__ import annotations
@@ -168,6 +181,29 @@ def _cmd_commit(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_job(args: argparse.Namespace) -> int:
+    """One-shot job mutation over the server's unix socket (the JAX
+    package's ``job`` command)."""
+    import asyncio
+    import json as _json
+
+    from .server.jobrpc import call_job_rpc
+
+    if args.action == "backup":
+        req = {"op": "backup_queue", "job_id": args.id}
+    elif args.action == "restore":
+        req = {"op": "restore_queue", "target": args.target,
+               "snapshot": args.snapshot, "destination": args.destination,
+               "subpath": args.subpath}
+    elif args.action == "status":
+        req = {"op": "status", "job_id": args.id}
+    else:
+        req = {"op": "list"}
+    resp = asyncio.run(call_job_rpc(args.socket, req))
+    print(_json.dumps(resp, indent=1))
+    return 0 if resp.get("ok") else 1
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m pbs_plus_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -211,6 +247,16 @@ def main(argv: list[str] | None = None) -> int:
     c.add_argument("--socket", required=True)
     c.add_argument("--timeout", type=float, default=600.0)
     c.set_defaults(fn=_cmd_commit)
+    j = sub.add_parser("job", help="one-shot job mutation (unix socket)")
+    j.add_argument("action", choices=["backup", "restore", "status", "list"])
+    j.add_argument("--socket", required=True,
+                   help="<state-dir>/job.sock of the running server")
+    j.add_argument("--id", default="", help="backup job id")
+    j.add_argument("--target", default="")
+    j.add_argument("--snapshot", default="")
+    j.add_argument("--destination", default="")
+    j.add_argument("--subpath", default="")
+    j.set_defaults(fn=_cmd_job)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -30,7 +30,7 @@ digest with K2 and probe with K3.  ``make_chunker_factory`` and
 device they are given, the store's; the CPU kinds (``""``, ``cpu``,
 ``scalar``, ``vector``), ``sidecar:<host:port>`` and ``tpu`` raise
 ``ValueError`` naming ``"cuda"``: the CPU chunkers and the sidecar
-factory arrive with the server shell.
+factory are not in the port yet.
 """
 
 from __future__ import annotations
@@ -100,8 +100,9 @@ def match_exclusion(rel: str, patterns: list[str]) -> bool:
 def _not_served(kind: str) -> ValueError:
     return ValueError(f"chunker backend {kind!r} is not served by the port "
                       "(want cuda; the cpu | scalar | vector | "
-                      "sidecar:<host:port> kinds arrive with the server "
-                      "shell, and tpu is the JAX package's)")
+                      "sidecar:<host:port> kinds are not in "
+                      "pbs_plus_tpu_torch yet, and tpu is the JAX "
+                      "package's)")
 
 
 def validate_chunker_kind(kind: str) -> None:

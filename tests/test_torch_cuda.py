@@ -701,3 +701,126 @@ def test_backup_job_on_card(cuda, tmp_path, pbs):
     assert got["cuda"][0] == [] and got["cuda"][1] == 6
     assert got["cuda"][4] == {f"d/f{i}": (src / "d" / f"f{i}").read_bytes()
                               for i in range(6)}
+
+
+def test_server_on_card(cuda, tmp_path):
+    """A port ``Server`` on the card against one on the CPU: an agent
+    bootstrapped and connected over mTLS, a backup fired by a scheduler
+    tick, a second over the job socket after a change, then prune and
+    GC.  The chunk and snapshot files and the index verdicts on every
+    digest after the sweep are equal (the index headers' uuid and time
+    and the snapshot time pinned), and K1, K2 and K3 launch under the
+    server on the card."""
+    import asyncio
+    import datetime as dt
+    import os
+    import time
+
+    from pbs_plus_tpu_torch.agent.lifecycle import AgentConfig, AgentLifecycle
+    from pbs_plus_tpu_torch.agent.snapshots import SnapshotManager
+    from pbs_plus_tpu_torch.arpc import TlsClientConfig
+    from pbs_plus_tpu_torch.pxar import backupproxy
+    from pbs_plus_tpu_torch.server import database
+    from pbs_plus_tpu_torch.server.jobrpc import call_job_rpc
+    from pbs_plus_tpu_torch.server.metrics import MetricsRegistry
+    from pbs_plus_tpu_torch.server.store import Server, ServerConfig
+    from pbs_plus_tpu_torch.utils import mtls
+
+    src = tmp_path / "src"
+    os.makedirs(src / "d")
+
+    def put(name, data, t):
+        """Write a file, its mtime and its directory's pinned, so both
+        servers' metadata archives match."""
+        (src / "d" / name).write_bytes(data.tobytes())
+        for p in (src / "d" / name, src / "d"):
+            os.utime(p, ns=(t * 10**9, t * 10**9))
+    for i in range(5):
+        put(f"f{i}", _bytes(2000 + 30_000 * i, 80 + i), 1_600_000_000)
+
+    async def run(dev):
+        base = tmp_path / dev
+        server = Server(ServerConfig(
+            state_dir=str(base / "state"), cert_dir=str(base / "certs"),
+            datastore_dir=str(base / "ds"), chunk_avg=4096,
+            dedup_index_mb=1, prune_keep_last=1), device=dev)
+        await server.start()
+        tid, secret = server.issue_bootstrap_token()
+        key = mtls.generate_private_key()
+        cert = server.bootstrap_agent("h", mtls.make_csr(key, "h"), tid,
+                                      secret)
+        (base / "h.pem").write_bytes(cert)
+        (base / "h.key").write_bytes(mtls.key_pem(key))
+        agent = AgentLifecycle(AgentConfig(
+            "h", "127.0.0.1", server.config.arpc_port,
+            TlsClientConfig(str(base / "h.pem"), str(base / "h.key"),
+                            server.certs.ca_cert_path),
+            drive_update_interval_s=0),
+            snapshot_manager=SnapshotManager(prefer_direct=True))
+        task = asyncio.ensure_future(agent.run())
+        try:
+            await server.agents.wait_session("h", timeout=10)
+            server.db.upsert_backup_job(database.BackupJobRow(
+                id="j", target="h", source_path=str(src), backup_id="h",
+                schedule="02:00", chunker="cuda"))
+            await server.scheduler.tick(dt.datetime(2026, 7, 29, 2, 0, 10))
+            await server.job_queue.drain(timeout=120)
+            put("f4", _bytes(70_000, 99), 1_600_000_100)
+            sock = str(base / "state" / "job.sock")
+            await call_job_rpc(sock, {"op": "backup_queue", "job_id": "j"})
+            await server.job_queue.drain(timeout=120)
+            status = await call_job_rpc(sock, {"op": "status",
+                                               "job_id": "j"})
+            before = sorted(server.datastore.datastore.chunks.iter_digests())
+            rep = await server.run_prune(gc_grace_s=0.0)
+            verdicts = server.datastore.datastore.chunks.index.probe_batch(
+                before)
+            text = MetricsRegistry(server).render()
+        finally:
+            await agent.stop()
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+            await server.stop()
+        files = {}
+        for dp, _dn, fn in os.walk(base / "ds"):
+            for f in fn:
+                if f.endswith(("idx", "didx")) or len(f) == 64:
+                    files[os.path.relpath(os.path.join(dp, f), base)] = \
+                        open(os.path.join(dp, f), "rb").read()
+        return status, (rep.removed, rep.chunks_removed), verdicts, files, \
+            text
+
+    class Clock:
+        def __getattr__(self, name):
+            return getattr(time, name)
+
+        @staticmethod
+        def time():
+            return 1_700_000_000.0
+
+    got = {}
+    mp = pytest.MonkeyPatch()
+    real = os.urandom
+    mp.setattr(os, "urandom", lambda n: b"\x5a" * n if n == 16 else real(n))
+    mp.setattr(time, "time_ns", lambda: 1_700_000_000 * 10**9)
+    mp.setattr(backupproxy, "time", Clock())
+    try:
+        for dev in ("cpu", "cuda"):
+            put("f4", _bytes(2000 + 30_000 * 4, 84), 1_600_000_000)
+            before = (rolling_hash.KERNEL.launches, sha256.KERNEL.launches,
+                      cuckoo.stats["device_probes"])
+            got[dev] = asyncio.run(run(dev))
+            after = (rolling_hash.KERNEL.launches, sha256.KERNEL.launches,
+                     cuckoo.stats["device_probes"])
+            if dev == "cuda":
+                assert all(a > b for a, b in zip(after, before))
+    finally:
+        mp.undo()
+    for dev in ("cpu", "cuda"):
+        status, (removed, swept), verdicts, _files, text = got[dev]
+        assert status["job"]["last_status"] == "success"
+        assert len(removed) == 1 and swept >= 1
+        assert not all(verdicts) and any(verdicts)
+        assert 'pbs_plus_job_grant_to_publish_seconds_count{kind="backup"}' \
+            in text
+    assert got["cuda"][:4] == got["cpu"][:4]
