@@ -91,6 +91,23 @@ runs one phase per line:
               backup, the job latency histograms' p50/p99, tick, socket,
               verification, prune/GC/discard and render times, the
               device table's update, K1/K2/K3 launches
+   web        the port as its users run it: ``python -m pbs_plus_tpu_torch
+              server --device cuda --print-token`` and ``... agent``
+              (jobs in ``agent-job`` children, ``--snapshots direct``) as
+              two processes; the agent enrols over POST
+              /plus/agent/bootstrap with the printed token, then over the
+              HTTP API: a target and a backup job (the server's default
+              chunker, 4 MiB chunks), backup #1 of a 1 GiB tree (files of
+              log-uniform sizes, a symlink, a hard link, an excluded
+              file), the snapshot listing, a restore to a fresh
+              directory (sha256 per file == the source's), a verification
+              at rate 1.0 (0 corrupt), the zip of one directory (members
+              == its files), backup #2 after 4 writes of 4 KiB (only the
+              chunks around the writes stored again), the metrics render
+              (K1/K2/K3 launches of the server process > 0); bootstrap
+              ms, backup/restore s and MiB/s, verification s beside
+              hashlib's, render ms; both processes stopped at the end,
+              their stderr printed where the phase fails
 7. sidecar    the route an unmodified backup server takes: DedupService on
               the card, 8 client threads streaming the 8 streams through
               Chunk in 4 MiB pages, InsertIndex of backup #1, backup #2
@@ -196,6 +213,10 @@ MOUNT_UNLINKS = 4         # 4 unlinks
 MOUNT_VERIFY_BATCH = None  # None: CommitEngine.VERIFY_BATCH_BYTES (32 MiB)
 JOB_CHECKPOINT = "8c"     # the severed job: a checkpoint every 8 chunks
 JOB_SEVER_AT = 0.5        # the severed job's drop: this share of its reads
+WEB_BYTES = 1 << 30       # the web phase's tree: 1 GiB of files
+WEB_DIRS = 8              # in 8 directories
+WEB_CHUNK_AVG = None      # None: the server command's default (4 MiB)
+WEB_PORT_TIMEOUT = 300.0  # the longest the phase waits on one step
 # the index tier at a server's defaults (PBS_PLUS_DEDUP_INDEX_MB=64,
 # PBS_PLUS_DEDUP_RESIDENT_MB=256): 4 Mi digests are a 16 TiB datastore of
 # 4 MiB chunks, a filter load of 0.5, and spill the 112 B/entry memtable
@@ -1569,6 +1590,402 @@ def backup_job_phase(dev, P, streams: dict, seed: int, root: str) -> dict:
                        + out["severed"]["launches"][k]
                        + out["local"]["launches"][k]
                        for k in out["backups"][0]["launches"]}
+    return out
+
+
+def _tail(path: str, n: int = 6000) -> str:
+    try:
+        with open(path, "rb") as f:
+            f.seek(0, os.SEEK_END)
+            f.seek(max(0, f.tell() - n))
+            return f.read().decode(errors="replace")
+    except OSError as e:
+        return f"({e})"
+
+
+def _read_line(proc, pred, timeout: float) -> list[str]:
+    """stdout lines of ``proc`` up to the first that satisfies ``pred``.
+    A thread reads them: a select on the pipe would miss lines that the
+    text stream's buffer already holds."""
+    import queue
+    lines_q: queue.Queue = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines_q.put(line.rstrip("\n"))
+        lines_q.put(None)
+    threading.Thread(target=pump, daemon=True).start()
+    lines, t_end = [], time.monotonic() + timeout
+    while True:
+        left = t_end - time.monotonic()
+        check(left > 0, f"web: no expected line from {proc.args[3]} in "
+                        f"{timeout} s: {lines}")
+        try:
+            line = lines_q.get(timeout=min(left, 0.5))
+        except queue.Empty:
+            check(proc.poll() is None,
+                  f"web: {proc.args[3]} exited with {proc.returncode}")
+            continue
+        check(line is not None, f"web: {proc.args[3]} closed its stdout")
+        lines.append(line)
+        if pred(line):
+            return lines
+
+
+def _children(pid: int) -> list[int]:
+    """Processes whose parent is ``pid`` (read from /proc)."""
+    out = []
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    stat = f.read()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                out.append(int(d))
+    return out
+
+
+def _stop(procs: list, extra: set) -> None:
+    """SIGINT (the commands stop their server/agent on it), then SIGKILL
+    whatever is left, the agent's job children included."""
+    import signal
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGINT)
+    for p in procs:
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait(timeout=30)
+    for pid in extra:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+
+
+def web_phase(seed: int, root: str) -> dict:
+    """The port as its users run it: ``python -m pbs_plus_tpu_torch
+    server --device <card> --print-token`` and ``... agent`` (jobs in
+    ``agent-job`` children) as two processes, the agent enrolled over
+    ``POST /plus/agent/bootstrap`` with the printed token, and every step
+    through the HTTP API with the printed API token: a target and a
+    backup job (chunker left to the server's default), backup #1 of a
+    1 GiB tree, the snapshot listing, a restore to a fresh directory, a
+    verification at rate 1.0, the zip of one subdirectory, backup #2
+    after 4 writes of 4 KiB, and the metrics render.  The tree: files of
+    log-uniform sizes (the store phase's) in 8 directories, a symlink, a
+    hard link and a ``*.tmp`` file the job excludes.  Checks: the
+    restored tree's sha256 per file equals the source's (the excluded
+    file absent, the link and hard link kept), the verification reports
+    no corrupt chunk, the zip's members equal the subdirectory's files,
+    backup #2 stores again only the chunks around the writes (every
+    other chunk of #1 at its offset in #2), and the server process's
+    render counts K1, K2 and K3 launches."""
+    import aiohttp
+
+    from pbs_plus_tpu_torch.pxar.datastore import (DynamicIndex,
+                                                   parse_snapshot_ref)
+    from pbs_plus_tpu_torch.utils import mtls
+
+    t_phase = time.perf_counter()
+    src = os.path.join(root, "src")
+    files = store_files(WEB_BYTES, seed + 500)
+    rels = [os.path.join(f"d{i % WEB_DIRS}", f"f{i:05d}")
+            for i in range(len(files))]
+    for k in range(WEB_DIRS):
+        os.makedirs(os.path.join(src, f"d{k}"), exist_ok=True)
+
+    def write(i):
+        s, e = files[i]
+        blob = np.random.default_rng(seed + 10_000 + i).bytes(e - s)
+        with open(os.path.join(src, rels[i]), "wb") as f:
+            f.write(blob)
+        return rels[i], hashlib.sha256(blob).hexdigest()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        want = dict(pool.map(write, range(len(files))))
+    os.symlink(rels[0], os.path.join(src, "ln"))
+    os.link(os.path.join(src, rels[1]), os.path.join(src, "hard"))
+    want["hard"] = want[rels[1]]
+    with open(os.path.join(src, "skip.tmp"), "wb") as f:
+        f.write(b"excluded by the job row" * 100)
+    write_s = time.perf_counter() - t0
+
+    def tree_digests(top):
+        """{rel: sha256 hex or ("link", target)} of every file under top,
+        hashed on 8 threads."""
+        paths = []
+        for dp, _dn, fn in os.walk(top):
+            paths += [os.path.join(dp, n) for n in fn]
+
+        def one(p):
+            rel = os.path.relpath(p, top)
+            if os.path.islink(p):
+                return rel, ("link", os.readlink(p))
+            h = hashlib.sha256()
+            with open(p, "rb") as f:
+                for blk in iter(lambda: f.read(8 << 20), b""):
+                    h.update(blk)
+            return rel, h.hexdigest()
+        with ThreadPoolExecutor(8) as pool:
+            return dict(pool.map(one, paths))
+
+    # the hashlib yardstick for the verification: one core over the tree
+    t0 = time.perf_counter()
+    for rel in rels:
+        h = hashlib.sha256()
+        with open(os.path.join(src, rel), "rb") as f:
+            for blk in iter(lambda: f.read(8 << 20), b""):
+                h.update(blk)
+    hashlib_s = time.perf_counter() - t0
+
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    logs = {n: os.path.join(root, f"{n}.stderr") for n in ("server", "agent")}
+    cmd = [sys.executable, "-m", "pbs_plus_tpu_torch"]
+    server_args = ["server", "--datastore", os.path.join(root, "ds"),
+                   "--state-dir", os.path.join(root, "state"),
+                   "--cert-dir", os.path.join(root, "certs"),
+                   "--host", "127.0.0.1", "--arpc-port", "0",
+                   "--web-port", "0", "--print-token", "--device", DEVICE]
+    if WEB_CHUNK_AVG:
+        server_args += ["--chunk-avg", str(WEB_CHUNK_AVG)]
+    procs, children, agent = [], set(), None
+    out = {"phase": "web", "tree_bytes": WEB_BYTES, "files": len(files),
+           "write_s": write_s}
+    try:
+        t0 = time.perf_counter()
+        with open(logs["server"], "w") as err:
+            server = subprocess.Popen(cmd + server_args, cwd=ROOT, env=env,
+                                      stdout=subprocess.PIPE, stderr=err,
+                                      text=True)
+        procs.append(server)
+        lines = _read_line(server, lambda s: s.startswith("api token"),
+                           WEB_PORT_TIMEOUT)
+        out["server_start_s"] = time.perf_counter() - t0
+        ports = lines[-3].split("aRPC :")[1].split(", web :")
+        arpc, web = int(ports[0]), int(ports[1])
+        boot_tok, api_tok = lines[-2].split()[-1], lines[-1].split()[-1]
+        t0 = time.perf_counter()
+        with open(logs["agent"], "w") as err:
+            agent = subprocess.Popen(
+                cmd + ["agent", "--hostname", "web0",
+                       "--server", f"127.0.0.1:{arpc}",
+                       "--state-dir", os.path.join(root, "agent"),
+                       "--bootstrap-url", f"http://127.0.0.1:{web}",
+                       "--bootstrap-token", boot_tok,
+                       "--snapshots", "direct"],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=err,
+                text=True)
+        procs.append(agent)
+        _read_line(agent, lambda s: s.startswith("bootstrapped"),
+                   WEB_PORT_TIMEOUT)
+        out["agent_enrol_s"] = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{web}"
+        api = base + "/api2/json/d2d"
+        dest = os.path.join(root, "restored")
+        payload = sum(e - s for s, e in files)
+
+        async def drive():
+            auth = {"Authorization": f"Bearer {api_tok}"}
+            async with aiohttp.ClientSession(headers=auth) as http:
+                async def call(method, url, body=None, raw=False):
+                    async with http.request(method, url, json=body) as r:
+                        data = await r.read()
+                        check(r.status == 200, f"web: {method} {url}: "
+                                               f"{r.status} {data[:500]!r}")
+                    return data if raw else json.loads(data)
+
+                async def until(fn, what):
+                    t_end = time.monotonic() + WEB_PORT_TIMEOUT
+                    while True:
+                        v = await fn()
+                        if v:
+                            return v
+                        check(time.monotonic() < t_end, f"web: {what} "
+                              f"not done in {WEB_PORT_TIMEOUT} s")
+                        check(all(p.poll() is None for p in procs),
+                              f"web: a process exited during {what}")
+                        await asyncio.sleep(0.1)
+
+                # enrolment of a second host, timed, over the same route
+                tok = await call("POST", api + "/token")
+                csr = mtls.make_csr(mtls.generate_private_key(), "web-probe")
+                t0 = time.perf_counter()
+                async with aiohttp.ClientSession() as anon:
+                    async with anon.post(base + "/plus/agent/bootstrap", json={
+                            "hostname": "web-probe", "csr": csr.decode(),
+                            "token_id": tok["token_id"],
+                            "token_secret": tok["token_secret"]}) as r:
+                        boot = await r.json()
+                        check(r.status == 200 and "cert" in boot,
+                              f"web: bootstrap: {r.status} {boot}")
+                out["bootstrap_ms"] = (time.perf_counter() - t0) * 1e3
+
+                await call("POST", api + "/target",
+                           {"name": "web0", "kind": "agent",
+                            "hostname": "web0"})
+
+                async def connected():
+                    rows = (await call("GET", api + "/target"))["data"]
+                    return any(t["name"] == "web0" and t["connected"]
+                               for t in rows)
+                await until(connected, "the agent's control session")
+                job = (await call("POST", api + "/backup", {
+                    "id": "web", "target": "web0", "source_path": src,
+                    "exclusions": ["*.tmp"]}))["data"]
+                check(job["chunker"] == "cuda",
+                      f"web: the job's default chunker is {job['chunker']}")
+
+                async def backup(n):
+                    before = {t["upid"] for t in (await call(
+                        "GET", api + "/tasks?job=web"))["data"]}
+                    t0 = time.perf_counter()
+                    check((await call("POST", api + "/backup/web/run"))[
+                        "started"], f"web: backup #{n} not started")
+
+                    async def done():
+                        ts = [t for t in (await call(
+                            "GET", api + "/tasks?job=web"))["data"]
+                            if t["upid"] not in before]
+                        return ts and ts[0]["status"] != "running" and ts[0]
+                    task = await until(done, f"backup #{n}")
+                    s = time.perf_counter() - t0
+                    check(task["status"] == "success",
+                          f"web: backup #{n}: {task}")
+                    return task, s
+                task1, out["backup1_s"] = await backup(1)
+                snaps = (await call("GET", api + "/snapshots"))["data"]
+                check(len(snaps) == 1, f"web: snapshots {snaps}")
+                snap1 = snaps[0]["snapshot"]
+                check(snaps[0]["payload_size"] >= payload,
+                      f"web: payload {snaps[0]['payload_size']} < {payload}")
+
+                t0 = time.perf_counter()
+                rid = (await call("POST", api + "/restore", {
+                    "target": "web0", "snapshot": snap1,
+                    "destination": dest}))["restore_id"]
+
+                async def restored():
+                    r = (await call("GET", api + f"/restore/{rid}"))["data"]
+                    return r["status"] in ("success", "error") and r
+                row = await until(restored, "the restore")
+                out["restore_s"] = time.perf_counter() - t0
+                check(row["status"] == "success", f"web: restore: {row}")
+
+                await call("POST", api + "/verification",
+                           {"id": "web-v", "sample_rate": 1.0})
+                t0 = time.perf_counter()
+                check((await call("POST", api + "/verification/web-v/run"))[
+                    "started"], "web: verification not started")
+
+                async def verified():
+                    v = (await call(
+                        "GET", api + "/verification/web-v/results"))["data"]
+                    return v.get("last_status") and v
+                ver = await until(verified, "the verification")
+                out["verification_s"] = time.perf_counter() - t0
+
+                zdir = f"d{WEB_DIRS // 2}"
+                t0 = time.perf_counter()
+                zbytes = await call(
+                    "GET", api + f"/snapshot-zip?snapshot={snap1}&path={zdir}",
+                    raw=True)
+                out["zip_s"] = time.perf_counter() - t0
+
+                # backup #2 after WRITES in-place writes of WRITE_BYTES
+                rng = np.random.default_rng(seed + 501)
+                big = [i for i, (s, e) in enumerate(files)
+                       if e - s >= 2 * WRITE_BYTES]
+                for i in rng.choice(big, WRITES, replace=False):
+                    s, e = files[i]
+                    off = int(rng.integers(0, e - s - WRITE_BYTES))
+                    with open(os.path.join(src, rels[i]), "r+b") as f:
+                        f.seek(off)
+                        f.write(rng.bytes(WRITE_BYTES))
+                task2, out["backup2_s"] = await backup(2)
+                snaps = (await call("GET", api + "/snapshots"))["data"]
+                snap2 = next(s["snapshot"] for s in snaps
+                             if s["snapshot"] != snap1)
+                t0 = time.perf_counter()
+                render = (await call("GET", base + "/plus/metrics",
+                                     raw=True)).decode()
+                out["render_ms"] = (time.perf_counter() - t0) * 1e3
+                return task1, task2, snap1, snap2, ver, zdir, zbytes, render
+        task1, task2, snap1, snap2, ver, zdir, zbytes, render = \
+            asyncio.run(drive())
+    except BaseException:
+        for n, p in logs.items():
+            print(f"chip_smoke: web: {n} stderr:\n{_tail(p)}",
+                  file=sys.stderr, flush=True)
+        raise
+    finally:
+        if agent is not None:
+            children |= set(_children(agent.pid))
+        _stop(procs, children)
+
+    mib = WEB_BYTES / 2**20
+    out.update(
+        backup1_mib_s=mib / out["backup1_s"],
+        backup2_mib_s=mib / out["backup2_s"],
+        restore_mib_s=mib / out["restore_s"],
+        hashlib_s=hashlib_s, verification=ver["last_report"]["checked"],
+        log1=task1["log"].strip(), log2=task2["log"].strip())
+    # the restored tree, file by file, against the source as backed up
+    got = tree_digests(dest)
+    want_links = {"ln": ("link", rels[0])}
+    check(got == {**want, **want_links},
+          "web: the restored tree differs from the source: "
+          f"{sorted(set(got) ^ set(want) ^ set(want_links))[:10]}")
+    check(os.stat(os.path.join(dest, "hard")).st_ino
+          == os.stat(os.path.join(dest, rels[1])).st_ino,
+          "web: the hard link was not restored as one")
+    rep = ver["last_report"]
+    check(ver["last_status"] == "success" and rep["corrupt"] == []
+          and rep["checked"] > 0, f"web: verification {ver}")
+    # the zip of one subdirectory: its members are the source's files
+    import io
+    import zipfile
+    zf = zipfile.ZipFile(io.BytesIO(zbytes))
+    zwant = {os.path.basename(r): want[r] for r in rels
+             if r.startswith(zdir + "/")}
+    zgot = {n: hashlib.sha256(zf.read(n)).hexdigest() for n in zf.namelist()}
+    check(zgot == zwant, f"web: zip members differ: {sorted(zgot)[:5]} vs "
+                         f"{sorted(zwant)[:5]}")
+    out["zip_members"], out["zip_bytes"] = len(zgot), len(zbytes)
+    # backup #2 over #1: the chunks of #1 that #2 does not hold at the same
+    # offset come in at most WRITES runs of at most 3 chunks (the chunk a
+    # write lands in, a neighbour it straddles into, the resync)
+    ds = os.path.join(root, "ds")
+    idx = [DynamicIndex.parse(os.path.join(ds, parse_snapshot_ref(s).rel_dir,
+                                           "root.pidx")) for s in (snap1, snap2)]
+    kept2 = {(idx[1].chunk_bounds(i), idx[1].digest(i))
+             for i in range(len(idx[1]))}
+    gone = [i for i in range(len(idx[0]))
+            if (idx[0].chunk_bounds(i), idx[0].digest(i)) not in kept2]
+    runs = [r for r in np.split(np.array(gone, dtype=np.int64),
+                                np.where(np.diff(gone) != 1)[0] + 1) if len(r)]
+    check(0 < len(runs) <= WRITES and max(len(r) for r in runs) <= 3,
+          f"web: backup #2 did not reuse #1's unchanged chunks: runs "
+          f"{[list(r) for r in runs]} of {len(idx[0])} chunks")
+    out["payload_chunks"] = [len(idx[0]), len(idx[1])]
+    out["chunks_rewritten"] = len(gone)
+    # the server process's own counts: the main path ran on its kernels
+    launches = {}
+    for line in render.splitlines():
+        if line.startswith("pbs_plus_device_kernel_launches_total{"):
+            k = line.split('kernel="')[1].split('"')[0]
+            launches[k] = int(float(line.rsplit(" ", 1)[1]))
+    check(set(launches) == {"candidate_mask", "sha256_chunks", "cuckoo_probe"},
+          f"web: launch series {launches}")
+    check(all(v > 0 for v in launches.values()),
+          f"web: a kernel did not launch in the server: {launches}")
+    out["launches"] = launches
+    out["render_lines"] = len(render.splitlines())
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -3122,6 +3539,13 @@ def main() -> int:
             shutil.rmtree(server_root, ignore_errors=True)
     finally:
         shutil.rmtree(job_root, ignore_errors=True)
+    # the server and agent commands as two processes, driven over HTTP
+    web_root = tempfile.mkdtemp(prefix="web-", dir=SCRATCH)
+    try:
+        web_line = web_phase(args.seed, web_root)
+        emit(web_line)
+    finally:
+        shutil.rmtree(web_root, ignore_errors=True)
     store_launches = {k: sum(r["launches"][k] for st in store_line["stores"].values()
                              for r in st["backups"])
                       for k in ("candidate_mask", "sha256_chunks", "cuckoo_probe")}
@@ -3577,6 +4001,7 @@ def main() -> int:
          "mount_launches": mount_line["launches"]["cuckoo_probe"],
          "backup_job_launches": job_line["launches"]["cuckoo_probe"],
          "server_launches": server_line["launches"]["cuckoo_probe"],
+         "web_launches": web_line["launches"]["cuckoo_probe"],
          "index": {"launches": ix["k3_launches"],
                    "table_bytes": INDEX_BUDGET_MB << 20,
                    "batch_ms": ix["k3_ms"],
@@ -3661,7 +4086,8 @@ def main() -> int:
              "store": store_launches["candidate_mask"],
              "mount": mount_line["launches"]["candidate_mask"],
              "backup_job": job_line["launches"]["candidate_mask"],
-             "server": server_line["launches"]["candidate_mask"]},
+             "server": server_line["launches"]["candidate_mask"],
+             "web": web_line["launches"]["candidate_mask"]},
          "max_abs_err": int(k1_err > 0),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
          "bound_by": "bytes" if k1_bound_bytes >= k1_bound_ops else "operations",
@@ -3679,7 +4105,8 @@ def main() -> int:
              "verification": ver_launches,
              "mount": mount_line["launches"]["sha256_chunks"],
              "backup_job": job_line["launches"]["sha256_chunks"],
-             "server": server_line["launches"]["sha256_chunks"]},
+             "server": server_line["launches"]["sha256_chunks"],
+             "web": web_line["launches"]["sha256_chunks"]},
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,
          "plain_shape": f"size list {SHA_SIZES}, kernel {k2_small_ms} ms there",

@@ -50,6 +50,12 @@ kernel's plain PyTorch version.
   pbs_plus_tpu_torch mount`` / ``commit`` run it; ``server.mount_service``
   spawns the former.  ``pxar.pbsstore.PBSStore(device=)`` commits to a
   PBS server over its wire protocol.
+- server (the daemon): the web API (``server/web.py``: job, target,
+  restore, verification, snapshot and agent routes, PBS ticket auth,
+  ``/plus/metrics``), notifications and the alert scanner, the restore
+  job (the agent pulls the snapshot over ``pxar/remote.py``), and the
+  agent's job children (``agent/jobproc.py``); ``python -m
+  pbs_plus_tpu_torch server`` / ``agent`` / ``agent-job`` run them.
 - convert: index and chunker state carried across from the JAX package.
 """
 

@@ -1,6 +1,38 @@
-"""Command line of the port: ``python -m pbs_plus_tpu_torch sidecar``,
-``index-shard``, ``dryrun-multichip``, ``mount``, ``commit`` and
-``job``.
+"""Command line of the port: ``python -m pbs_plus_tpu_torch server``,
+``agent``, ``agent-job``, ``sidecar``, ``index-shard``,
+``dryrun-multichip``, ``mount``, ``commit`` and ``job``.
+
+    python -m pbs_plus_tpu_torch server --datastore /srv/ds \
+        --state-dir /srv/state --cert-dir /srv/certs --print-token \
+        --device cuda
+
+runs the backup server daemon: the aRPC listener agents connect to
+(``--arpc-port``, 8008), the web API (``--web-port``, 8017; routes of
+``server/web.py``), the scheduler, the notification spool and the
+alert scanner.  Backups cut (K1), digest (K2) and probe (K3) on
+``--device``; without a card ``--device cuda`` exits nonzero naming
+CUDA (``--device cpu`` runs the plain versions).  The flags are the JAX
+package's ``server`` flags plus ``--device``; ``--chunker`` defaults to
+``cuda`` (the reference's to ``cpu``, which the port does not serve),
+and the log (to stderr at INFO, and to ``--log-file`` where given) is
+plain text lines, where the reference's log module writes JSON.  ``--print-token`` prints a bootstrap token and
+an API token (``token_id:secret_hex``).
+
+    python -m pbs_plus_tpu_torch agent --server 127.0.0.1:8008 \
+        --state-dir /var/lib/agent --bootstrap-url http://127.0.0.1:8017 \
+        --bootstrap-token <token_id:secret_hex>
+
+runs the backup agent: on first start it enrols over
+``POST /plus/agent/bootstrap`` (a CSR signed with the bootstrap token),
+then keeps its control session open.  Each backup or restore runs in a
+``python -m pbs_plus_tpu_torch agent-job`` child
+(``--job-isolation subprocess``, the default) or as a task in the agent
+(``task``).  The flags are the JAX package's ``agent`` flags, plus
+``--snapshots``: ``auto`` (the default, the reference's behaviour) takes
+a btrfs, zfs or LVM snapshot or an fsfreeze quiesce of the source's
+filesystem where one is available; ``direct`` reads the live tree and
+touches no filesystem setting (tests, and machines shared with other
+work).
 
     python -m pbs_plus_tpu_torch sidecar --listen 127.0.0.1:18900 \\
         --chunk-avg 4194304 --device cuda
@@ -44,8 +76,13 @@ The flags are the JAX package's ``mount``/``commit`` flags, plus
 queues a backup job, or reads one job's row or the list of jobs, over
 a running server's job socket (``<state_dir>/job.sock`` of a port
 ``Server`` or a JAX one: the wire is the same); it prints the answer as
-JSON and exits 1 where the answer is not ok.  ``restore`` is accepted
-and a port server answers that the restore job is not ported yet.
+JSON and exits 1 where the answer is not ok.  ``restore`` queues a
+restore (``--target``, ``--snapshot``, ``--destination``,
+``--subpath``).
+
+The reference's ``signer`` command needs ``agent/updater.py``, which is
+not in the port yet: ``signer`` takes the reference's flags and exits
+nonzero naming it.
 """
 
 from __future__ import annotations
@@ -55,6 +92,164 @@ import os
 import sys
 
 from .parallel.dist_index import add_shard_arguments
+
+_LOG_FORMAT = "%(asctime)s %(levelname)s %(name)s %(message)s"
+
+
+def _log_to_stderr():
+    """The package's log at INFO on stderr, as the reference's log module
+    sets up its own at import."""
+    import logging
+    log = logging.getLogger("pbs_plus_tpu_torch")
+    if not log.handlers:
+        h = logging.StreamHandler(sys.stderr)
+        h.setFormatter(logging.Formatter(_LOG_FORMAT))
+        log.addHandler(h)
+        log.setLevel(logging.INFO)
+    return log
+
+
+def _cmd_server(args: argparse.Namespace) -> int:
+    """Twin of the JAX package's ``cli._cmd_server``: the server's
+    device is ``--device``."""
+    import asyncio
+
+    from .server.notifications import (AlertScanner, BatchTracker,
+                                       file_spool_sink)
+    from .server.store import Server, ServerConfig
+    from .server.web import start_web
+    from .utils.device import CudaUnavailableError
+
+    log = _log_to_stderr()
+    if args.log_file:
+        import logging
+        import logging.handlers
+        path = os.path.abspath(args.log_file)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        h = logging.handlers.RotatingFileHandler(
+            path, maxBytes=50 << 20, backupCount=5)
+        h.setFormatter(logging.Formatter(_LOG_FORMAT))
+        log.addHandler(h)
+
+    async def main():
+        try:
+            server = Server(ServerConfig(
+                state_dir=args.state_dir, cert_dir=args.cert_dir,
+                datastore_dir=args.datastore, arpc_host=args.host,
+                arpc_port=args.arpc_port, chunker=args.chunker,
+                chunk_avg=args.chunk_avg,
+                datastore_format=args.datastore_format,
+                pbs_url=args.pbs_url, pbs_datastore=args.pbs_datastore,
+                pbs_token=args.pbs_token, pbs_namespace=args.pbs_namespace,
+                pbs_fingerprint=args.pbs_fingerprint,
+                pbs_auth_key_path=args.pbs_auth_key,
+                pbs_csrf_key_path=args.pbs_csrf_key,
+                pbs_auth_allowed_users=args.pbs_auth_users,
+                prune_keep_last=args.prune_keep_last,
+                prune_keep_daily=args.prune_keep_daily,
+                prune_keep_weekly=args.prune_keep_weekly,
+                prune_schedule=args.prune_schedule), device=args.device)
+        except CudaUnavailableError as e:
+            raise SystemExit(f"server: {e}")
+        from .server.notify_templates import TemplateSet
+        templates = TemplateSet(os.path.join(args.state_dir, "templates"))
+        sink = file_spool_sink(os.path.join(args.state_dir, "notify-spool"))
+        server.notifications = BatchTracker(sink=sink, templates=templates)
+        scanner = AlertScanner(server, sink, templates=templates)
+        await server.start()
+        runner, web_port = await start_web(
+            server, host=args.host, port=args.web_port,
+            require_auth=not args.no_auth)
+        scan_task = asyncio.create_task(scanner.run())
+        print(f"pbs-plus-tpu server: aRPC :{server.config.arpc_port}, "
+              f"web :{web_port}", flush=True)
+        if args.print_token:
+            tid, secret = server.issue_bootstrap_token(ttl_s=24 * 3600)
+            print(f"bootstrap token: {tid}:{secret.hex()}", flush=True)
+            aid, asecret = server.issue_api_token()
+            print(f"api token:       {aid}:{asecret.hex()}", flush=True)
+        stop = asyncio.Event()
+        try:
+            await stop.wait()
+        finally:
+            scanner.stop()
+            scan_task.cancel()
+            await runner.cleanup()
+            await server.stop()
+    try:
+        asyncio.run(main())
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _cmd_agent(args: argparse.Namespace) -> int:
+    """Twin of the JAX package's ``cli._cmd_agent``."""
+    import asyncio
+
+    import aiohttp
+
+    from .agent.lifecycle import AgentConfig, AgentLifecycle
+    from .agent.snapshots import SnapshotManager
+    from .arpc import TlsClientConfig
+    from .utils import fsio, mtls
+
+    _log_to_stderr()
+    state = os.path.abspath(args.state_dir)
+    os.makedirs(state, exist_ok=True)
+    cert_p = os.path.join(state, "agent.pem")
+    key_p = os.path.join(state, "agent.key")
+    ca_p = os.path.join(state, "ca.pem")
+
+    async def bootstrap():
+        key = mtls.generate_private_key()
+        csr = mtls.make_csr(key, args.hostname)
+        tid, sec = args.bootstrap_token.split(":", 1)
+        async with aiohttp.ClientSession() as http:
+            r = await http.post(
+                f"{args.bootstrap_url}/plus/agent/bootstrap",
+                json={"hostname": args.hostname, "csr": csr.decode(),
+                      "token_id": tid, "token_secret": sec})
+            if r.status != 200:
+                raise SystemExit(f"bootstrap failed: {await r.text()}")
+            body = await r.json()
+        await fsio.awrite_text(cert_p, body["cert"])
+        await fsio.awrite_text(ca_p, body["ca"])
+        await asyncio.to_thread(fsio.write_private_bytes, key_p,
+                                mtls.key_pem(key))
+        print("bootstrapped: certificate stored", flush=True)
+
+    async def main():
+        if not os.path.exists(cert_p):
+            if not args.bootstrap_token or not args.bootstrap_url:
+                raise SystemExit(
+                    "no certificate; pass --bootstrap-url and "
+                    "--bootstrap-token for first-time setup")
+            await bootstrap()
+        host, port = args.server.rsplit(":", 1)
+        agent = AgentLifecycle(AgentConfig(
+            hostname=args.hostname, server_host=host, server_port=int(port),
+            tls=TlsClientConfig(cert_p, key_p, ca_p),
+            job_isolation=args.job_isolation),
+            snapshot_manager=SnapshotManager(
+                prefer_direct=args.snapshots == "direct"))
+        await agent.run()
+    try:
+        asyncio.run(main())
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _cmd_agent_job(args: argparse.Namespace) -> int:
+    from .agent.jobproc import run_child
+    _log_to_stderr()
+    return run_child(args.config)
+
+
+def _cmd_signer(args: argparse.Namespace) -> int:
+    raise SystemExit("signer: agent artifact signing needs agent/updater.py, "
+                     "which is not in pbs_plus_tpu_torch yet")
 
 
 def _cmd_sidecar(args: argparse.Namespace) -> int:
@@ -207,6 +402,69 @@ def _cmd_job(args: argparse.Namespace) -> int:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="python -m pbs_plus_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    s = sub.add_parser("server", help="run the backup server daemon")
+    # the JAX package's server flags, plus --device
+    s.add_argument("--state-dir", default="/var/lib/pbs-plus-tpu")
+    s.add_argument("--cert-dir", default="/etc/pbs-plus-tpu/certs")
+    s.add_argument("--datastore", required=True)
+    s.add_argument("--host", default="0.0.0.0")
+    s.add_argument("--arpc-port", type=int, default=8008)
+    s.add_argument("--web-port", type=int, default=8017)
+    s.add_argument("--chunker", default="cuda")
+    s.add_argument("--chunk-avg", type=int, default=4 << 20)
+    s.add_argument("--datastore-format", default="tpxd",
+                   choices=("tpxd", "pbs"),
+                   help="on-disk snapshot layout: native tpxd, or pbs "
+                        "(stock-PBS DataBlob chunks + .didx indexes)")
+    s.add_argument("--no-auth", action="store_true")
+    s.add_argument("--print-token", action="store_true",
+                   help="mint + print a bootstrap token at startup")
+    s.add_argument("--pbs-url", default="",
+                   help="push-target PBS base URL (store='pbs' jobs)")
+    s.add_argument("--pbs-datastore", default="")
+    s.add_argument("--pbs-token", default="",
+                   help="PBSAPIToken user@realm!name:secret")
+    s.add_argument("--pbs-namespace", default="")
+    s.add_argument("--pbs-fingerprint", default="")
+    s.add_argument("--pbs-auth-key", default="",
+                   help="PBS ticket-signing key (e.g. /etc/proxmox-backup/"
+                        "authkey.key); enables PBS-cookie auth on the web API")
+    s.add_argument("--pbs-csrf-key", default="",
+                   help="PBS CSRF secret (/etc/proxmox-backup/csrf.key); "
+                        "required for cookie-authenticated write requests")
+    s.add_argument("--pbs-auth-users", default="",
+                   help="CSV of PBS userids granted sidecar access via "
+                        "cookie (default root@pam; '*' = any PBS user)")
+    s.add_argument("--prune-keep-last", type=int, default=0)
+    s.add_argument("--prune-keep-daily", type=int, default=0)
+    s.add_argument("--prune-keep-weekly", type=int, default=0)
+    s.add_argument("--prune-schedule", default="",
+                   help="calendar expr for scheduled prune+GC")
+    s.add_argument("--log-file", default="",
+                   help="size-rotated log file (50 MiB x 5)")
+    s.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    s.set_defaults(fn=_cmd_server)
+    a = sub.add_parser("agent", help="run the backup agent")
+    a.add_argument("--hostname", default=os.uname().nodename)
+    a.add_argument("--server", required=True, help="aRPC host:port")
+    a.add_argument("--state-dir", default="/var/lib/pbs-plus-tpu-agent")
+    a.add_argument("--bootstrap-url", default="",
+                   help="http(s)://server:web-port for first-time bootstrap")
+    a.add_argument("--bootstrap-token", default="", help="token_id:secret_hex")
+    a.add_argument("--job-isolation", choices=["task", "subprocess"],
+                   default="subprocess",
+                   help="run jobs as forked child processes (default) or "
+                        "in-process asyncio tasks")
+    a.add_argument("--snapshots", choices=["auto", "direct"], default="auto",
+                   help="auto: a CoW snapshot or fsfreeze of the source's "
+                        "filesystem where available; direct: read the live "
+                        "tree")
+    a.set_defaults(fn=_cmd_agent)
+    aj = sub.add_parser("agent-job",
+                        help="(internal) forked job child entrypoint")
+    aj.add_argument("--config", required=True,
+                    help="one-time handoff file from the agent daemon")
+    aj.set_defaults(fn=_cmd_agent_job)
     d = sub.add_parser("sidecar", help="run the dedup sidecar")
     d.add_argument("--listen", default="127.0.0.1:18900")
     d.add_argument("--chunk-avg", type=int, default=4 << 20)
@@ -257,6 +515,14 @@ def main(argv: list[str] | None = None) -> int:
     j.add_argument("--destination", default="")
     j.add_argument("--subpath", default="")
     j.set_defaults(fn=_cmd_job)
+    sg = sub.add_parser("signer", help="sign/verify agent artifacts "
+                                       "(not ported yet)")
+    sg.add_argument("action", choices=["keygen", "sign", "verify"])
+    sg.add_argument("--key", required=True,
+                    help="private key (sign/keygen) or public key (verify)")
+    sg.add_argument("--file", default="", help="artifact to sign/verify")
+    sg.add_argument("--sig", default="", help="signature path (verify)")
+    sg.set_defaults(fn=_cmd_signer)
     args = ap.parse_args(argv)
     return args.fn(args)
 

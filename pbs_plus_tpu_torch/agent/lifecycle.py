@@ -8,26 +8,30 @@ verify_start, update}, cert-error → clear certs + re-bootstrap.
 Job execution model: the reference forks a child per job
 (internal/agent/cli/entry.go:14-88) so a crashing job can't take down the
 control session, and the child opens its own data connection carrying the
-X-PBS-Plus-BackupID header.  This build runs jobs as asyncio tasks (each
-with its own data connection — same wire behavior).
+X-PBS-Plus-BackupID header.  This build runs jobs as asyncio tasks by
+default (each with its own data connection — same wire behavior) and
+supports subprocess isolation via ``python -m pbs_plus_tpu_torch
+agent-job`` (``agent/jobproc.py``).
 
-A copy of the part of the JAX package's ``agent/lifecycle.py`` that a
-backup job reaches: ``AgentConfig``, and ``AgentLifecycle`` with the
-handlers ``ping``, ``target_status``, ``backup``, ``cleanup``,
-``filetree`` and ``drives``, the reconnect loop and the drive-inventory
+A copy of the JAX package's ``agent/lifecycle.py`` without self-update:
+``AgentConfig``, and ``AgentLifecycle`` with the handlers ``ping``,
+``target_status``, ``backup``, ``cleanup``, ``restore``,
+``cleanup_restore``, ``filetree``, ``drives`` and ``profile``, in-process
+or subprocess job isolation, the reconnect loop and the drive-inventory
 push.  Its code is byte for byte apart from its imports, which name the
 port's own modules, and its logger (``logging``; the scoped logger is a
-``LoggerAdapter`` carrying the same ``agent`` field).  Not ported yet,
-each raising ``ValueError`` at construction where a config asks for it:
-subprocess job isolation (``agent/jobproc.py`` and an ``agent-job``
-command) and self-update (``agent/updater.py``); the ``restore``,
-``cleanup_restore``, ``verify_start``, ``profile`` and ``update_now``
-handlers are not registered (``agent/restore.py``, ``utils/profiling.py``
-and ``agent/updater.py`` are not ported), so a server calling them gets
-the router's "unknown method" answer.  One addition: with ``tls=None``
-(the transport's plain loopback mode) the agent's handshakes claim its
-hostname in ``X-PBS-Plus-Loopback-CN``, so a plain loopback server admits
-it under that name.
+``LoggerAdapter`` carrying the same ``agent`` field).  Not ported yet:
+self-update (``agent/updater.py``; a config asking for it raises
+``ValueError`` at construction) and the agent-side source cross-check;
+their handlers ``update_now`` and ``verify_start`` answer an error naming
+what is missing.  One addition: with ``tls=None`` (the transport's plain
+loopback mode) the agent's handshakes claim its hostname in
+``X-PBS-Plus-Loopback-CN``, so a plain loopback server admits it under
+that name; its jobs then run as tasks (``subprocess`` isolation, whose
+children dial mTLS sessions of their own, raises ``ValueError``).  And a
+backup's job child takes the daemon's snapshot preference (``SnapshotManager(prefer_direct=...)``), so an agent
+told to read trees directly never has its children freeze or snapshot a
+filesystem either.
 """
 
 from __future__ import annotations
@@ -39,8 +43,9 @@ import random
 from dataclasses import dataclass
 
 from ..arpc import Router, Session, TlsClientConfig, connect_to_server
-from ..arpc.agents_manager import HDR_BACKUP_ID
+from ..arpc.agents_manager import HDR_BACKUP_ID, HDR_RESTORE_ID
 from ..arpc.mux import MuxConnection
+from ..arpc.router import HandlerError
 from ..arpc.transport import HDR_LOOPBACK_CN
 from .agentfs import AgentFSServer
 from .snapshots import Snapshot, SnapshotManager
@@ -50,14 +55,21 @@ L = logging.getLogger(__name__)
 BACKOFF_MIN_S = 0.5
 BACKOFF_MAX_S = 30.0
 
+UPDATE_NOT_PORTED = ("update_now: agent self-update (agent/updater.py) is "
+                     "not in pbs_plus_tpu_torch yet")
+VERIFY_NOT_PORTED = ("verify_start: the agent-side source cross-check "
+                     "(agent/lifecycle.py's _verify_start) is not in "
+                     "pbs_plus_tpu_torch yet")
+
 
 @dataclass
 class ActiveJob:
     job_id: str
-    kind: str                    # backup
+    kind: str                    # backup | restore
     conn: MuxConnection | None
     snapshot: Snapshot | None
     task: asyncio.Task | None = None
+    proc: "asyncio.subprocess.Process | None" = None   # subprocess isolation
 
 
 @dataclass
@@ -88,11 +100,10 @@ class AgentLifecycle:
 
     def __init__(self, config: AgentConfig, *,
                  snapshot_manager: SnapshotManager | None = None):
-        if config.job_isolation != "task":
-            raise ValueError(
-                f"job_isolation={config.job_isolation!r} needs "
-                "agent/jobproc.py and the 'python -m pbs_plus_tpu_torch "
-                "agent-job' command, not yet ported; use 'task'")
+        if config.job_isolation == "subprocess" and config.tls is None:
+            raise ValueError("job_isolation='subprocess' needs the agent's "
+                             "certificate (tls): a job child dials its own "
+                             "mTLS session; use 'task' on plain loopback")
         if all((config.update_base_url, config.update_binary_path,
                 config.update_state_dir, config.update_signer_pub)):
             raise ValueError("self-update needs agent/updater.py, not yet "
@@ -122,8 +133,22 @@ class AgentLifecycle:
         r.handle("target_status", self._target_status)
         r.handle("backup", self._backup_start)
         r.handle("cleanup", self._cleanup)
+        r.handle("restore", self._restore_start)
+        r.handle("cleanup_restore", self._cleanup)
         r.handle("filetree", self._filetree)
+        r.handle("verify_start", self._not_ported(VERIFY_NOT_PORTED))
         r.handle("drives", self._drives)
+        # CPU-profile capture on demand (the agent-side pprof analog,
+        # reference internal/agent/cli/entry.go:59-79)
+        from ..utils.profiling import profile_rpc
+        r.handle("profile", profile_rpc)
+        r.handle("update_now", self._not_ported(UPDATE_NOT_PORTED))
+
+    @staticmethod
+    def _not_ported(message: str):
+        async def handler(req, ctx):
+            raise HandlerError(message, status=501)
+        return handler
 
     async def _drives(self, req, ctx):
         from .drives import enumerate_drives
@@ -162,6 +187,17 @@ class AgentLifecycle:
         source = req.payload["source"]
         if job_id in self.jobs:
             return {"ok": True, "already": True}
+        if self.config.job_isolation == "subprocess":
+            from .jobproc import spawn_job_child
+            proc = await spawn_job_child(
+                "backup", job_id, self.config, source=source,
+                prefer_direct=self.snapshots.prefer_direct)
+            job = ActiveJob(job_id, "backup", None, None, proc=proc)
+            job.task = asyncio.create_task(self._reap_child(job))
+            self.jobs[job_id] = job
+            self.log.info("backup job child spawned (pid %d)", proc.pid)
+            return {"ok": True, "snapshot_method": "child",
+                    "pid": proc.pid}
         snap = await asyncio.get_running_loop().run_in_executor(
             None, self.snapshots.create, source)
         try:
@@ -194,12 +230,78 @@ class AgentLifecycle:
             self.jobs.pop(job.job_id, None)
             self.log.info("backup job session closed")
 
+    async def _restore_start(self, req, ctx):
+        """Server-initiated restore: open a job session on which the agent
+        *drives* the restore (pulls archive content from the server's
+        remote-pxar handlers and writes files locally)."""
+        from .restore import run_restore_job
+        job_id = req.payload["job_id"]
+        dest = req.payload["destination"]
+        if job_id in self.jobs:
+            return {"ok": True, "already": True}
+        if self.config.job_isolation == "subprocess":
+            from .jobproc import spawn_job_child
+            proc = await spawn_job_child("restore", job_id, self.config,
+                                         destination=dest)
+            job = ActiveJob(job_id, "restore", None, None, proc=proc)
+            job.task = asyncio.create_task(self._reap_child(job))
+            self.jobs[job_id] = job
+            return {"ok": True, "pid": proc.pid}
+        conn = await connect_to_server(
+            self.config.server_host, self.config.server_port,
+            self.config.tls,
+            headers=self._headers({HDR_RESTORE_ID: job_id}))
+        job = ActiveJob(job_id, "restore", conn, None)
+        job.task = asyncio.create_task(
+            self._run_restore(job, dest))
+        self.jobs[job_id] = job
+        return {"ok": True}
+
+    async def _run_restore(self, job: ActiveJob, dest: str) -> None:
+        from .restore import run_restore_job
+        try:
+            await run_restore_job(Session(job.conn), dest)
+        except Exception:
+            self.log.exception("restore job failed")
+        finally:
+            await job.conn.close()
+            self.jobs.pop(job.job_id, None)
+
+    @staticmethod
+    def _remove_handoff(proc) -> None:
+        """A child killed before consuming its one-time handoff leaves it
+        behind — remove it so no job parameters linger on disk.  Called
+        from every teardown path (reaper AND cleanup RPC)."""
+        path = getattr(proc, "handoff_path", "")
+        if path and os.path.exists(path):
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+
+    async def _reap_child(self, job: ActiveJob) -> None:
+        """Wait for a job child to exit; keep the job table accurate."""
+        assert job.proc is not None
+        rc = await job.proc.wait()
+        self.jobs.pop(job.job_id, None)
+        self._remove_handoff(job.proc)
+        self.log.info("job child %s exited rc=%s", job.job_id, rc)
+
     async def _cleanup(self, req, ctx):
-        """Kill a job session (reference: sync/backup.go:69-100); the
-        job's own teardown releases its snapshot."""
+        """Kill a job session (reference: sync/backup.go:69-100 — the
+        parent terminates the forked child; the child's own teardown
+        releases its snapshot)."""
         job_id = req.payload["job_id"]
         job = self.jobs.pop(job_id, None)
         if job is not None:
+            if job.proc is not None and job.proc.returncode is None:
+                job.proc.terminate()
+                try:
+                    await asyncio.wait_for(job.proc.wait(), 10)
+                except asyncio.TimeoutError:
+                    job.proc.kill()
+            if job.proc is not None:
+                self._remove_handoff(job.proc)
             if job.conn is not None:
                 await job.conn.close()
             if job.task:
@@ -284,11 +386,15 @@ class AgentLifecycle:
         await self.router.serve_connection(self.conn)
 
     async def stop(self) -> None:
-        """Stop the daemon: close every job session (each job's task then
-        releases its snapshot) and the control session."""
+        """Stop the daemon.  Subprocess jobs are NOT killed — they own
+        their snapshots and data sessions, finish serving, and clean up
+        themselves (reference: child survives the service, snapshot
+        lifetime tied to the job)."""
         self._stop.set()
         for job in list(self.jobs.values()):
             if job.conn is not None:
                 await job.conn.close()
+            if job.task is not None and job.proc is not None:
+                job.task.cancel()       # stop reaping; child lives on
         if self.conn is not None:
             await self.conn.close()

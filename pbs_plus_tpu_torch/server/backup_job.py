@@ -99,8 +99,10 @@ def match_exclusion(rel: str, patterns: list[str]) -> bool:
 
 def _not_served(kind: str) -> ValueError:
     return ValueError(f"chunker backend {kind!r} is not served by the port "
-                      "(want cuda; the cpu | scalar | vector | "
-                      "sidecar:<host:port> kinds are not in "
+                      "(want cuda; the cpu | scalar | vector kinds "
+                      "(chunker/cpu.py, chunker/vector.py, "
+                      "chunker/native.py) and sidecar:<host:port> "
+                      "(sidecar/client.py's SidecarChunker) are not in "
                       "pbs_plus_tpu_torch yet, and tpu is the JAX "
                       "package's)")
 

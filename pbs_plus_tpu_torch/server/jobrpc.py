@@ -17,11 +17,8 @@ Local-root-only by unix permissions (socket mode 0600), matching the
 reference's trust model for this socket.
 
 A copy of the JAX package's ``server/jobrpc.py``, its code byte for
-byte apart from its logger (``logging``) and ``restore_queue``: the
-restore job (``server/restore_job.py``) is not in the port yet, so the
-op answers ``{"ok": false, "error": ...}`` naming that module.  The
-wire is the reference's, so either package's ``call_job_rpc`` talks to
-either package's server."""
+byte apart from its logger (``logging``).  The wire is the reference's,
+so either package's ``call_job_rpc`` talks to either package's server."""
 
 from __future__ import annotations
 
@@ -31,11 +28,6 @@ import logging
 import os
 
 L = logging.getLogger(__name__)
-
-
-RESTORE_NOT_PORTED = ("restore_queue: the restore job "
-                      "(server/restore_job.py) is not in pbs_plus_tpu_torch "
-                      "yet")
 
 
 class JobRPCServer:
@@ -94,7 +86,16 @@ class JobRPCServer:
             started = s.enqueue_backup(req["job_id"])
             return {"ok": True, "started": started}
         if op == "restore_queue":
-            return {"ok": False, "error": RESTORE_NOT_PORTED}
+            from .jobs import QueueFullError
+            from .restore_job import enqueue_restore
+            try:
+                rid = enqueue_restore(
+                    s, target=req["target"], snapshot=req["snapshot"],
+                    destination=req["destination"],
+                    subpath=req.get("subpath", ""))
+            except QueueFullError as e:
+                return {"ok": False, "error": str(e)}
+            return {"ok": True, "restore_id": rid}
         if op == "status":
             row = s.db.get_backup_job(req["job_id"])
             if row is None:

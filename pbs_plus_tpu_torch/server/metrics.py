@@ -13,7 +13,9 @@ lazy ones too: ``pipeline``, ``ingestbatch``, ``chunker.observe``,
 ``parallel.dist_index``), its logger (``logging``) and one addition,
 ``histogram_snapshot()``, which ``utils/trace.py``'s ``histograms()``
 returns.  A port server so exports the port's own index, digest-log,
-ingest and delta counters.
+ingest and delta counters.  One family is the port's own:
+``pbs_plus_device_kernel_launches_total`` counts the launches of K1, K2
+and K3 in the server's process (``kernel_launches()``).
 """
 
 from __future__ import annotations
@@ -238,6 +240,19 @@ histogram("pbs_plus_service_lock_wait_seconds",
           "Wait to acquire a server service's own lock, by service "
           "(where the old Server._prune_lock convoy would "
           "reappear if the service split ever regressed)")
+
+
+def kernel_launches() -> "dict[str, int]":
+    """Launches of the port's kernels in this process so far: K1 and K2
+    from their wrappers' counts, K3 from the cuckoo probe's device
+    probes; 0 for a module this process never imported."""
+    import sys as _sys
+    rh = _sys.modules.get("pbs_plus_tpu_torch.ops.rolling_hash")
+    sha = _sys.modules.get("pbs_plus_tpu_torch.ops.sha256")
+    ck = _sys.modules.get("pbs_plus_tpu_torch.ops.cuckoo")
+    return {"candidate_mask": rh.KERNEL.launches if rh else 0,
+            "sha256_chunks": sha.KERNEL.launches if sha else 0,
+            "cuckoo_probe": ck.stats["device_probes"] if ck else 0}
 
 
 class MetricsRegistry:
@@ -863,6 +878,13 @@ class MetricsRegistry:
               "Shard-map re-reads over the wire (bootstrap, reject "
               "re-route, corrupt snapshot degradation)",
               [({}, float(di["map_reloads"]))])
+        # -- the port's device kernels: launches in this process (K1, K2
+        #    and K3; read where the ops modules are already imported)
+        gauge("pbs_plus_device_kernel_launches_total",
+              "Device kernel launches of this process (candidate_mask = "
+              "K1, sha256_chunks = K2, cuckoo_probe = K3)",
+              [({"kernel": k}, float(n))
+               for k, n in kernel_launches().items()])
         gauge("pbs_plus_scrape_timestamp", "Scrape time", [({}, time.time())])
         # -- latency histograms (utils/trace.py span closes) -----------------
         hist_block = render_histograms()

@@ -32,9 +32,10 @@ kind, where the reference's defaults to ``"cpu"``.  ``_enqueue_sync``
 raises ``NotImplementedError`` naming ``server/sync_job.py``, which is
 not in the port yet, and ``Server`` raises it, naming the missing
 modules, for a ``ServerConfig`` field that only they read when the field
-is set (``_UNPORTED_FIELDS``).  The web API, the notification tracker and the
-``server`` command are not in the port yet either: ``notifications``
-stays a sink the caller attaches.
+is set (``_UNPORTED_FIELDS``).  The web API (``server/web.py``), the
+notification tracker (``server/notifications.py``) and the ``server``
+command (``python -m pbs_plus_tpu_torch server``) wrap it as the
+reference's do; ``notifications`` is the sink the caller attaches.
 """
 
 from __future__ import annotations
@@ -70,10 +71,6 @@ SYNC_NOT_PORTED = ("sync jobs: the sync job (server/sync_job.py) is not "
 _UNPORTED_FIELDS = {
     "chunker_backend": "the CPU chunker kinds (chunker/cpu.py, "
                        "chunker/vector.py)",
-    "pbs_auth_key_path": "the web API (server/web.py, server/pbsauth.py)",
-    "pbs_csrf_key_path": "the web API (server/web.py, server/pbsauth.py)",
-    "pbs_auth_allowed_users": "the web API (server/web.py, "
-                              "server/pbsauth.py)",
 }
 
 

@@ -39,6 +39,7 @@ from pbs_plus_tpu_torch.agent import drives as port_drives
 from pbs_plus_tpu_torch.agent import lifecycle as port_lc
 from pbs_plus_tpu_torch.agent import snapshots as port_snaps
 from pbs_plus_tpu_torch.arpc import agents_manager as port_am
+from pbs_plus_tpu_torch.arpc import router as port_router
 from pbs_plus_tpu_torch.arpc import transport as port_tr
 from pbs_plus_tpu_torch.server import database as port_db
 from pbs_plus_tpu_torch.utils import crypto as port_crypto
@@ -315,10 +316,27 @@ def test_agent_handlers_match_reference(tmp_path):
     ref, ref_methods = asyncio.run(calls(ref_lc))
     port, port_methods = asyncio.run(calls(port_lc))
     assert ref == port
-    assert port_methods == ["backup", "cleanup", "drives", "filetree",
-                            "ping", "target_status"]
-    assert set(port_methods) < set(ref_methods)
-    for kw, what in (({"job_isolation": "subprocess"}, "agent/jobproc.py"),
+    # the restore, profile and subprocess-isolation parts are ported;
+    # self-update and the source cross-check answer that they are not
+    assert port_methods == ref_methods == [
+        "backup", "cleanup", "cleanup_restore", "drives", "filetree",
+        "ping", "profile", "restore", "target_status", "update_now",
+        "verify_start"]
+
+    async def unported():
+        lc = port_lc.AgentLifecycle(port_lc.AgentConfig(
+            hostname="h", server_host="x", server_port=1, tls=None))
+        out = []
+        for method in ("update_now", "verify_start"):
+            with pytest.raises(port_router.HandlerError) as e:
+                await lc.router._handlers[method](SimpleReq({"path": "/"}),
+                                                  None)
+            out.append((str(e.value), e.value.status))
+        return out
+    assert asyncio.run(unported()) == [
+        (port_lc.UPDATE_NOT_PORTED, 501), (port_lc.VERIFY_NOT_PORTED, 501)]
+    assert "agent/updater.py" in port_lc.UPDATE_NOT_PORTED
+    for kw, what in (({"job_isolation": "subprocess"}, "certificate"),
                      ({"update_base_url": "u", "update_binary_path": "b",
                        "update_state_dir": "s", "update_signer_pub": b"k"},
                       "agent/updater.py")):

@@ -824,3 +824,108 @@ def test_server_on_card(cuda, tmp_path):
         assert 'pbs_plus_job_grant_to_publish_seconds_count{kind="backup"}' \
             in text
     assert got["cuda"][:4] == got["cpu"][:4]
+
+
+def test_web_on_card(cuda, tmp_path):
+    """The ``server`` command on the card and an ``agent`` process (its
+    jobs in ``agent-job`` children): one small backup and one restore
+    over the HTTP API; the restored tree equals the source, and the
+    server's ``/plus/metrics`` counts K1, K2 and K3 launches."""
+    import asyncio
+    import os
+    import re
+    import subprocess
+    import sys
+
+    import aiohttp
+
+    from test_torch_web import REPO, _lines_until, _tree, _wait
+
+    src = tmp_path / "src"
+    os.makedirs(src / "d")
+    for i in range(4):
+        (src / "d" / f"f{i}").write_bytes(
+            _bytes(5000 + 700_000 * i, 90 + i).tobytes())
+    os.symlink("d/f0", src / "link")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    # stderr to files: an unread pipe would stall a process that logs
+    logs = {n: tmp_path / f"{n}.stderr" for n in ("server", "agent")}
+    with open(logs["server"], "w") as err:
+        server = subprocess.Popen(
+            [sys.executable, "-m", "pbs_plus_tpu_torch", "server",
+             "--datastore", str(tmp_path / "ds"), "--state-dir",
+             str(tmp_path / "st"), "--cert-dir", str(tmp_path / "ct"),
+             "--host", "127.0.0.1", "--arpc-port", "0", "--web-port", "0",
+             "--chunk-avg", str(64 << 10), "--print-token", "--device",
+             "cuda"], cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=err,
+            text=True)
+    agent = None
+    try:
+        lines = _lines_until(server, lambda s: s.startswith("api token"), 300)
+        arpc, web = re.search(r"aRPC :(\d+), web :(\d+)", lines[0]).groups()
+        with open(logs["agent"], "w") as err:
+            agent = subprocess.Popen(
+                [sys.executable, "-m", "pbs_plus_tpu_torch", "agent",
+                 "--hostname", "h0", "--server", f"127.0.0.1:{arpc}",
+                 "--state-dir", str(tmp_path / "agent"), "--bootstrap-url",
+                 f"http://127.0.0.1:{web}", "--bootstrap-token",
+                 lines[1].split()[-1], "--snapshots", "direct"],
+                cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=err,
+                text=True)
+        _lines_until(agent, lambda s: s.startswith("bootstrapped"), 120)
+        base = f"http://127.0.0.1:{web}"
+        auth = {"Authorization": f"Bearer {lines[2].split()[-1]}"}
+        dest = str(tmp_path / "restored")
+
+        async def main():
+            async with aiohttp.ClientSession(headers=auth) as http:
+                async def call(method, path, body=None):
+                    async with http.request(method, base + path,
+                                            json=body) as r:
+                        assert r.status == 200, await r.text()
+                        if r.content_type == "application/json":
+                            return await r.json()
+                        return await r.text()
+                api = "/api2/json/d2d"
+                await call("POST", f"{api}/target", {"name": "h0"})
+
+                async def connected():
+                    return (await call("GET", f"{api}/target"))[
+                        "data"][0]["connected"]
+                await _wait(connected, "control session", 60)
+                await call("POST", f"{api}/backup", {
+                    "id": "j", "target": "h0", "source_path": str(src)})
+                await call("POST", f"{api}/backup/j/run")
+
+                async def backed_up():
+                    t = (await call("GET", f"{api}/tasks?job=j"))["data"]
+                    return t and t[0]["status"] != "running" and t[0]
+                task = await _wait(backed_up, "backup", 300)
+                assert task["status"] == "success", task
+                snap = (await call("GET", f"{api}/snapshots"))[
+                    "data"][0]["snapshot"]
+                rid = (await call("POST", f"{api}/restore", {
+                    "target": "h0", "snapshot": snap,
+                    "destination": dest}))["restore_id"]
+
+                async def restored():
+                    r = (await call("GET", f"{api}/restore/{rid}"))["data"]
+                    return r["status"] in ("success", "error") and r
+                assert (await _wait(restored, "restore", 300))[
+                    "status"] == "success"
+                return await call("GET", "/plus/metrics")
+        metrics = asyncio.run(main())
+    finally:
+        for proc in (agent, server):
+            if proc is not None:
+                proc.terminate()
+        for proc in (agent, server):
+            if proc is not None:
+                proc.wait(timeout=60)
+    assert _tree(dest) == _tree(str(src))
+    launches = dict(re.findall(
+        r'pbs_plus_device_kernel_launches_total\{kernel="(\w+)"\} (\S+)',
+        metrics))
+    assert set(launches) == {"candidate_mask", "sha256_chunks",
+                             "cuckoo_probe"}
+    assert all(float(v) > 0 for v in launches.values()), launches

@@ -8,6 +8,7 @@ import argparse
 import ast
 import asyncio
 import io
+import json
 import os
 import subprocess
 import sys
@@ -277,7 +278,7 @@ def test_port_imports_without_jax_or_reference():
     r = subprocess.run([sys.executable, "-c", _GATE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 108
+    assert int(r.stdout.split()[-1]) >= 120
 
 
 _STORE_GATE = r"""
@@ -532,6 +533,156 @@ def test_server_shell_runs_without_jax_or_reference():
     assert r.stdout.split()[-1] == "ok"
 
 
+# Installed as ``sitecustomize`` on PYTHONPATH, so every interpreter the
+# gate starts (the agent's ``agent-job`` children too) blocks the same
+# packages from its first line on: each writes its argv at start and any
+# attempt to import a blocked package, so a child that caught the
+# ImportError still shows.  msgpack stays importable: it is the aRPC
+# wire's codec (utils/codec.py), as in the reference, and the gate runs
+# an agent
+_WEB_BLOCK = r"""
+import json, os, sys
+
+_BLOCKED = ("jax", "jaxlib", "grpc", "pbs_plus_tpu")
+_DIR = os.environ["GATE_REPORTS"]
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in _BLOCKED:
+            with open(os.path.join(_DIR, f"blocked-{os.getpid()}-{name}"),
+                      "w") as f:
+                f.write(" ".join(sys.argv))
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+with open(os.path.join(_DIR, f"start-{os.getpid()}.json"), "w") as f:
+    json.dump(sys.argv, f)
+"""
+
+_WEB_GATE = r"""
+import asyncio, hashlib, os, sys, tempfile, time
+import aiohttp
+from pbs_plus_tpu_torch.agent.lifecycle import AgentConfig, AgentLifecycle
+from pbs_plus_tpu_torch.agent.snapshots import SnapshotManager
+from pbs_plus_tpu_torch.arpc import TlsClientConfig
+from pbs_plus_tpu_torch.server.store import Server, ServerConfig
+from pbs_plus_tpu_torch.server.web import start_web
+from pbs_plus_tpu_torch.utils import mtls
+
+tmp = tempfile.mkdtemp()
+src = os.path.join(tmp, "src")
+os.makedirs(os.path.join(src, "d"))
+for i in range(3):
+    with open(os.path.join(src, "d", f"f{i}"), "wb") as f:
+        f.write(os.urandom(1500 + 900 * i))
+os.symlink("d/f0", os.path.join(src, "link"))
+
+def tree(root):
+    out = {}
+    for dp, dn, fn in os.walk(root):
+        for n in fn:
+            p = os.path.join(dp, n)
+            out[os.path.relpath(p, root)] = os.readlink(p) if os.path.islink(
+                p) else hashlib.sha256(open(p, "rb").read()).hexdigest()
+    return out
+
+async def main():
+    server = Server(ServerConfig(
+        state_dir=os.path.join(tmp, "state"),
+        cert_dir=os.path.join(tmp, "certs"),
+        datastore_dir=os.path.join(tmp, "ds"), chunk_avg=1024,
+        dedup_index_mb=1), device="cpu")
+    await server.start()
+    runner, port = await start_web(server, host="127.0.0.1", port=0)
+    aid, asec = server.issue_api_token()
+    url = f"http://127.0.0.1:{port}"
+    async with aiohttp.ClientSession(
+            headers={"Authorization": f"Bearer {aid}:{asec.hex()}"}) as http:
+        async def req(method, path, body=None):
+            async with http.request(method, url + path, json=body) as r:
+                assert r.status == 200, (path, r.status, await r.text())
+                return await r.json()
+        tok = await req("POST", "/api2/json/d2d/token")
+        key = mtls.generate_private_key()
+        boot = await req("POST", "/plus/agent/bootstrap", {
+            "hostname": "h", "csr": mtls.make_csr(key, "h").decode(),
+            "token_id": tok["token_id"], "token_secret": tok["token_secret"]})
+        paths = [os.path.join(tmp, n) for n in ("h.pem", "h.key", "ca.pem")]
+        for p, data in zip(paths, (boot["cert"].encode(), mtls.key_pem(key),
+                                   boot["ca"].encode())):
+            with open(p, "wb") as f:
+                f.write(data)
+        agent = AgentLifecycle(AgentConfig(
+            "h", "127.0.0.1", server.config.arpc_port,
+            TlsClientConfig(*paths), job_isolation="subprocess",
+            drive_update_interval_s=0),
+            snapshot_manager=SnapshotManager(prefer_direct=True))
+        task = asyncio.ensure_future(agent.run())
+        await server.agents.wait_session("h", timeout=300)
+        await req("POST", "/api2/json/d2d/target", {"name": "h"})
+        await req("POST", "/api2/json/d2d/backup", {
+            "id": "j", "target": "h", "source_path": src})
+        assert (await req("POST", "/api2/json/d2d/backup/j/run"))["started"]
+        for _ in range(3000):
+            t = (await req("GET", "/api2/json/d2d/tasks?job=j"))["data"]
+            if t and t[0]["status"] != "running":
+                break
+            await asyncio.sleep(0.1)
+        assert t[0]["status"] == "success", t
+        snap = (await req("GET", "/api2/json/d2d/snapshots"))["data"][0]
+        dest = os.path.join(tmp, "restored")
+        rid = (await req("POST", "/api2/json/d2d/restore", {
+            "target": "h", "snapshot": snap["snapshot"],
+            "destination": dest}))["restore_id"]
+        for _ in range(3000):
+            r = (await req("GET", f"/api2/json/d2d/restore/{rid}"))["data"]
+            if r["status"] in ("success", "error"):
+                break
+            await asyncio.sleep(0.1)
+        assert r["status"] == "success", r
+        for _ in range(3000):               # the children are reaped
+            if not agent.jobs:
+                break
+            await asyncio.sleep(0.1)
+        assert not agent.jobs
+        assert tree(dest) == tree(src)
+    await agent.stop()
+    task.cancel()
+    await asyncio.gather(task, return_exceptions=True)
+    await runner.cleanup()
+    await server.stop()
+
+asyncio.run(main())
+print("ok")
+"""
+
+
+def test_web_backup_and_restore_run_without_jax_or_reference(tmp_path):
+    """The port's web API over a ``Server(device="cpu")``: an agent
+    enrolled over HTTP with ``job_isolation="subprocess"``, one backup
+    and one restore through the API, each run in an ``agent-job`` child;
+    jax, jaxlib, grpc and the reference are blocked in this interpreter
+    and, through ``sitecustomize``, in every child, and none of them
+    tries to import one."""
+    site = tmp_path / "site"
+    reports = tmp_path / "reports"
+    site.mkdir()
+    reports.mkdir()
+    (site / "sitecustomize.py").write_text(_WEB_BLOCK)
+    env = dict(os.environ, PYTHONPATH=f"{site}{os.pathsep}{REPO}",
+               GATE_REPORTS=str(reports))
+    r = subprocess.run([sys.executable, "-c", _WEB_GATE], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[-1] == "ok"
+    names = sorted(p.name for p in reports.iterdir())
+    assert [n for n in names if n.startswith("blocked-")] == []
+    argvs = [json.loads((reports / n).read_text()) for n in names]
+    assert len(argvs) == 3, argvs          # this interpreter, two children
+    assert sum("agent-job" in a for a in argvs) == 2, argvs
+
+
 def _imports_of(path):
     """Every module an ``import``/``from`` statement of ``path`` names,
     at any depth (inside functions too); relative imports stay
@@ -549,7 +700,7 @@ def test_no_import_of_jax_or_reference_anywhere_in_the_port():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for dp, _dn, fn in os.walk(os.path.join(REPO, "pbs_plus_tpu_torch")):
         files += [os.path.join(dp, f) for f in fn if f.endswith(".py")]
-    assert len(files) >= 109
+    assert len(files) >= 121
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imports_of(f)
            if m.split(".")[0] in ("jax", "jaxlib", "pbs_plus_tpu")]
