@@ -48,6 +48,15 @@ runs one phase per line:
               then one flipped byte in a payload chunk file, reported as
               chunk:<hex> (pbs) or raised as OSError (tpxd, as the JAX
               package's job does), and flipped back
+   sync       datastore replication of both stores into fresh stores on
+              the card at sync_batch 1024 (tpxd local to local, pbs over
+              a SyncWireServer on loopback): chunks transferred == the
+              source's distinct digests, snapshot and chunk files equal,
+              every chunk re-hashed by hashlib, the newest snapshots read
+              back, K3 launched at least once a probe batch; a second run
+              moves nothing; a run broken at pbsstore.sync.commit resumes
+              with fewer chunks; pbsstore.sync.transfer=corrupt raises
+              SyncError and leaves no torn chunk; MiB/s, probe ms a batch
    mount      each store's newest snapshot of its first group mounted
               (ArchiveView over the shared chunk cache, Journal,
               MutableFS) and committed by CommitEngine on the card: 4 KiB
@@ -91,13 +100,25 @@ runs one phase per line:
               backup, the job latency histograms' p50/p99, tick, socket,
               verification, prune/GC/discard and render times, the
               device table's update, K1/K2/K3 launches
+   kinds      the chunker kinds besides "cuda" against K1's cuts of stream
+              0: the native scan built by g++ from chunker/csrc/; stream 0
+              through the numpy, native and vector scans and through the
+              scalar, vector and sidecar:<addr> streaming chunkers (the
+              sidecar a port DedupService on the card over loopback
+              gRPC), MiB/s beside K1's; one local-target job per row kind
+              ("cpu", "sidecar:<addr>", "cuda") through a port Server:
+              every file read back, equal payload indexes, no kernel for
+              the cpu job (host chunker, hashlib, the index's host
+              mirror), the sidecar's K1/K2 for the sidecar job, K1/K2/K3
+              for the cuda job; scan-byte counters and the render show
+              no degradation
    web        the port as its users run it: ``python -m pbs_plus_tpu_torch
               server --device cuda --print-token`` and ``... agent``
               (jobs in ``agent-job`` children, ``--snapshots direct``) as
               two processes; the agent enrols over POST
               /plus/agent/bootstrap with the printed token, then over the
               HTTP API: a target and a backup job (the server's default
-              chunker, 4 MiB chunks), backup #1 of a 1 GiB tree (files of
+              chunker, 4 MiB chunks), backup #1 of a 512 MiB tree (files of
               log-uniform sizes, a symlink, a hard link, an excluded
               file), the snapshot listing, a restore to a fresh
               directory (sha256 per file == the source's), a verification
@@ -106,8 +127,11 @@ runs one phase per line:
               chunks around the writes stored again), the metrics render
               (K1/K2/K3 launches of the server process > 0); bootstrap
               ms, backup/restore s and MiB/s, verification s beside
-              hashlib's, render ms; both processes stopped at the end,
-              their stderr printed where the phase fails
+              hashlib's, render ms; then a pull sync row over the API
+              from the kinds phase's store, run until success, the
+              render's pbs_plus_sync_* families above 0; both processes
+              stopped at the end, their stderr printed where the phase
+              fails
 7. sidecar    the route an unmodified backup server takes: DedupService on
               the card, 8 client threads streaming the 8 streams through
               Chunk in 4 MiB pages, InsertIndex of backup #1, backup #2
@@ -136,14 +160,15 @@ runs one phase per line:
               cards where two or more are visible
 13. index     the store's DedupIndex on the card at a server's defaults
               (64 MiB table, 256 MiB memtable, spill segments): 4 Mi
-              digests preloaded, 1 Mi probed in batches of 1,024 (each
+              digests preloaded, 512 Ki probed in batches of 1,024 (each
               followed by the insert of its novel half) and 16 Ki in
               batches of 64, every answer held against a Python set; the
               device table's row copies against whole uploads; snapshot,
-              reload and boot seconds; discards; one filter growth
+              reload and boot seconds; discards of every 40th preloaded
+              digest; one filter growth
 14. dist_index two ``python -m pbs_plus_tpu_torch index-shard`` nodes on the
               card behind the port's DistIndexClient over loopback HTTP:
-              1 Mi inserts, 256 Ki probes in batches of 1,024, a rebalance
+              512 Ki inserts, 256 Ki probes in batches of 1,024, a rebalance
               to a third node, snapshots on exit
 15. similarity_index SimilarityIndex on the card: presketch of the step's
               chunks; sketches and candidates of a sample held against
@@ -213,7 +238,7 @@ MOUNT_UNLINKS = 4         # 4 unlinks
 MOUNT_VERIFY_BATCH = None  # None: CommitEngine.VERIFY_BATCH_BYTES (32 MiB)
 JOB_CHECKPOINT = "8c"     # the severed job: a checkpoint every 8 chunks
 JOB_SEVER_AT = 0.5        # the severed job's drop: this share of its reads
-WEB_BYTES = 1 << 30       # the web phase's tree: 1 GiB of files
+WEB_BYTES = 512 << 20     # the web phase's tree: 512 MiB of files
 WEB_DIRS = 8              # in 8 directories
 WEB_CHUNK_AVG = None      # None: the server command's default (4 MiB)
 WEB_PORT_TIMEOUT = 300.0  # the longest the phase waits on one step
@@ -224,12 +249,13 @@ INDEX_BUDGET_MB = 64
 INDEX_RESIDENT_MB = 256
 INDEX_PRELOAD = 1 << 22
 INDEX_INSERT_BATCH = 1 << 16
-INDEX_PROBES = 1 << 20        # in batches of 1,024, half present
+INDEX_PROBES = 1 << 19        # in batches of 1,024, half present
+INDEX_DISCARD_EVERY = 40      # every 40th preloaded digest discarded
 INDEX_SMALL_BATCHES = 256     # batches of 64: a lone writer's flushes
 INDEX_RECOVERY_PROBES = 1 << 16
 GROW_BUDGET_MB = 8            # grown past its load factor by GROW_INSERTS
 GROW_INSERTS = 1 << 20
-DIST_INSERTS = 1 << 20        # through two shard nodes
+DIST_INSERTS = 1 << 19        # through two shard nodes
 DIST_PROBES = 1 << 18         # in batches of 1,024, half present
 SIMI_SAMPLE = 32              # SimilarityIndex sketches held against the CPU
 SIMI_VARIANTS = 16            # near-duplicates of the sample's first chunks
@@ -895,6 +921,179 @@ def verification_phase(dev, stores: dict, clock_hz: float) -> dict:
             "hashlib_s": hashlib_s, "k2_launches": launches,
             "k2_flushes": flushes, "k2_bound_ms": bound_ms,
             "flipped_chunk": d.hex(), **flipped}
+    return out
+
+
+def sync_phase(dev, stores: dict, root: str) -> dict:
+    """Datastore replication of the store phase's two stores, each into a
+    fresh store on the card at the production ``sync_batch``: every tpxd
+    snapshot pulled local to local, every pbs snapshot pulled over a
+    ``SyncWireServer`` on loopback.  Checks: the chunks transferred are
+    the source's distinct digests (their delta closure), every snapshot
+    file and chunk file equals the source's, every transferred chunk
+    re-hashes to its name through hashlib, the newest snapshot of each
+    group reads back through ``SplitReader`` as its stream, K3 launches
+    at the destination at least once a probe batch; a second run moves
+    nothing and skips every snapshot; a run broken at
+    ``pbsstore.sync.commit`` resumes with ``resumed: true`` and fewer
+    chunks; ``pbsstore.sync.transfer=corrupt`` raises ``SyncError`` and
+    leaves no chunk that does not verify."""
+    import secrets
+
+    from pbs_plus_tpu_torch.ops import cuckoo
+    from pbs_plus_tpu_torch.pxar import syncwire as sw
+    from pbs_plus_tpu_torch.pxar.datastore import Datastore
+    from pbs_plus_tpu_torch.pxar.transfer import SplitReader
+    from pbs_plus_tpu_torch.utils import conf, failpoints
+
+    t_phase = time.perf_counter()
+    batch = conf.env().sync_batch
+    check(batch == 1024, f"the production sync batch is 1024, not {batch}")
+    token = secrets.token_hex(16)
+    out = {"phase": "sync", "batch": batch, "stores": {}}
+
+    def endpoints(kind, src, dst):
+        """(source, dest, closers): tpxd local to local, pbs over HTTP."""
+        if kind == "tpxd":
+            return sw.LocalSyncSource(src), sw.LocalSyncDest(dst), []
+        srv = sw.SyncWireServer(src, token)
+        source = sw.HttpSyncSource(f"http://127.0.0.1:{srv.start()}", token)
+        return source, sw.LocalSyncDest(dst), [source.close, srv.stop]
+
+    def run(kind, src, dst, job, probe_ms=None):
+        source, dest, closers = endpoints(kind, src, dst)
+        if probe_ms is not None:
+            inner = dest.probe_chunks
+
+            def timed_probe(digests):
+                t = time.perf_counter()
+                present = inner(digests)
+                probe_ms.append((time.perf_counter() - t) * 1e3)
+                return present
+            dest.probe_chunks = timed_probe
+        try:
+            t = time.perf_counter()
+            stats = sw.run_sync(source, dest, job_id=job,
+                                state_root=dst.base, batch=batch)
+            return stats, time.perf_counter() - t
+        finally:
+            for close in closers:
+                close()
+
+    for kind, st in stores.items():
+        src = st.store.datastore
+        pbs = kind == "pbs"
+        refs = src.list_snapshots()
+        union = set()
+        for ref in refs:
+            for idx in src.load_indexes(ref):
+                union.update(idx.digest(i) for i in range(len(idx)))
+        distinct = src.chunks.delta_closure(union)
+        dst = Datastore(os.path.join(root, f"sync-{kind}"), pbs_format=pbs,
+                        device=dev)
+        cuckoo.stats["device_probes"] = 0
+        probe_ms = []
+        stats, secs = run(kind, src, dst, f"chip-{kind}", probe_ms)
+        k3 = cuckoo.stats["device_probes"]
+        check(stats["snapshots_synced"] == len(refs)
+              and stats["chunks_transferred"] == len(distinct),
+              f"sync {kind}: {stats}, want {len(refs)} snapshots and "
+              f"{len(distinct)} chunks")
+        check(k3 >= stats["probe_batches"] > 0,
+              f"sync {kind}: K3 launched {k3} times for "
+              f"{stats['probe_batches']} probe batches")
+        # the snapshot dirs and the chunk files, byte for byte
+        for ref in refs:
+            a, b = src.snapshot_dir(ref), dst.snapshot_dir(ref)
+            names = sorted(os.listdir(a))
+            check(sorted(os.listdir(b)) == names, f"sync {kind} {ref}: files")
+            for n in names:
+                with open(os.path.join(a, n), "rb") as fa, \
+                        open(os.path.join(b, n), "rb") as fb:
+                    check(fa.read() == fb.read(), f"sync {kind} {ref}/{n}")
+        stored = sorted(dst.chunks.iter_digests())
+        check(set(stored) == distinct, f"sync {kind}: the mirror's chunks")
+
+        def same_and_hashes(d):
+            return dst.chunks.get_raw(d) == src.chunks.get_raw(d) and \
+                hashlib.sha256(dst.chunks.get(d)).digest() == d
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            ok = list(pool.map(same_and_hashes, stored))
+        rehash_s = time.perf_counter() - t0
+        check(all(ok), f"sync {kind}: a chunk differs or does not hash")
+        # the newest snapshot of each group, read back as its stream
+        t0 = time.perf_counter()
+        read = 0
+        for n in st.groups:
+            ref = dst.last_snapshot("host", n)
+            rd = SplitReader.open_snapshot(dst, ref)
+            a = st.streams[1][n]
+            for e, (s, t) in zip([e for e in rd.entries() if e.is_file],
+                                 st.files[n]):
+                got = rd.read_file(e)
+                check(np.array_equal(np.frombuffer(got, np.uint8), a[s:t]),
+                      f"sync {kind} {ref} {e.path} does not read back")
+                read += len(got)
+        read_s = time.perf_counter() - t0
+        # again: nothing to move
+        cuckoo.stats["device_probes"] = 0
+        again, again_s = run(kind, src, dst, f"chip-{kind}")
+        check(again["chunks_transferred"] == 0 and again["bytes_wire"] == 0
+              and again["snapshots_skipped"] == len(refs),
+              f"sync {kind} second run: {again}")
+        # broken at the second snapshot's publish, then resumed
+        dst2 = Datastore(os.path.join(root, f"sync-{kind}-resume"),
+                         pbs_format=pbs, device=dev)
+        with failpoints.armed("pbsstore.sync.commit", "raise", nth=2):
+            try:
+                run(kind, src, dst2, "chip-resume")
+                broke = None
+            except sw.SyncError as e:
+                broke = str(e)
+        check(broke is not None and len(dst2.list_snapshots()) == 1,
+              f"sync {kind}: the commit fault did not break the run: {broke}")
+        resumed, resumed_s = run(kind, src, dst2, "chip-resume")
+        check(resumed["resumed"] is True
+              and resumed["chunks_transferred"] < stats["chunks_transferred"]
+              and resumed["snapshots_synced"] == len(refs) - 1,
+              f"sync {kind} resumed run: {resumed}")
+        shutil.rmtree(dst2.base, ignore_errors=True)
+        # a payload corrupted on the wire: typed failure, no torn chunk
+        dst3 = Datastore(os.path.join(root, f"sync-{kind}-corrupt"),
+                         pbs_format=pbs, device=dev)
+        with failpoints.armed("pbsstore.sync.transfer", "corrupt", nth=7):
+            try:
+                run(kind, src, dst3, "chip-corrupt")
+                corrupt = None
+            except sw.SyncError as e:
+                corrupt = str(e)
+        landed = list(dst3.chunks.iter_digests())
+        check(corrupt is not None and dst3.list_snapshots() == []
+              and all(hashlib.sha256(dst3.chunks.get(d)).digest() == d
+                      for d in landed),
+              f"sync {kind}: the corrupt payload: {corrupt}, "
+              f"{len(landed)} chunks landed")
+        check(not [f for dp, _dn, fn in os.walk(dst3.base) for f in fn
+                   if ".tmp" in f], f"sync {kind}: .tmp debris")
+        shutil.rmtree(dst3.base, ignore_errors=True)
+        out["stores"][kind] = {
+            "wire": "local" if kind == "tpxd" else "http",
+            "snapshots": len(refs), "seconds": secs,
+            "logical_mib_s": stats["bytes_logical"] / 2**20 / secs,
+            "wire_mib_s": stats["bytes_wire"] / 2**20 / secs,
+            "stats": stats, "k3_launches": k3,
+            "probe_ms_per_batch": pct(probe_ms), "rehash_s": rehash_s,
+            "read_back_bytes": read, "read_back_s": read_s,
+            "rerun_s": again_s, "resumed": {
+                "broken": broke, "chunks": resumed["chunks_transferred"],
+                "seconds": resumed_s},
+            "corrupt": {"raised": corrupt, "chunks_landed": len(landed)}}
+        shutil.rmtree(dst.base, ignore_errors=True)
+    out["launches"] = {"cuckoo_probe": sum(
+        s["k3_launches"] for s in out["stores"].values())}
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -1667,14 +1866,14 @@ def _stop(procs: list, extra: set) -> None:
             pass
 
 
-def web_phase(seed: int, root: str) -> dict:
+def web_phase(seed: int, root: str, sync_peer: str = "") -> dict:
     """The port as its users run it: ``python -m pbs_plus_tpu_torch
     server --device <card> --print-token`` and ``... agent`` (jobs in
     ``agent-job`` children) as two processes, the agent enrolled over
     ``POST /plus/agent/bootstrap`` with the printed token, and every step
     through the HTTP API with the printed API token: a target and a
     backup job (chunker left to the server's default), backup #1 of a
-    1 GiB tree, the snapshot listing, a restore to a fresh directory, a
+    512 MiB tree, the snapshot listing, a restore to a fresh directory, a
     verification at rate 1.0, the zip of one subdirectory, backup #2
     after 4 writes of 4 KiB, and the metrics render.  The tree: files of
     log-uniform sizes (the store phase's) in 8 directories, a symlink, a
@@ -1684,7 +1883,11 @@ def web_phase(seed: int, root: str) -> dict:
     no corrupt chunk, the zip's members equal the subdirectory's files,
     backup #2 stores again only the chunks around the writes (every
     other chunk of #1 at its offset in #2), and the server process's
-    render counts K1, K2 and K3 launches."""
+    render counts K1, K2 and K3 launches.  With ``sync_peer`` (a
+    datastore an earlier phase left), a pull sync row with that
+    ``peer_path`` is added over the API after backup #2, run and polled
+    until it succeeds, and the render's ``pbs_plus_sync_*`` families
+    count its work."""
     import aiohttp
 
     from pbs_plus_tpu_torch.pxar.datastore import (DynamicIndex,
@@ -1910,12 +2113,28 @@ def web_phase(seed: int, root: str) -> dict:
                 snaps = (await call("GET", api + "/snapshots"))["data"]
                 snap2 = next(s["snapshot"] for s in snaps
                              if s["snapshot"] != snap1)
+                synced = None
+                if sync_peer:
+                    await call("POST", api + "/sync", {
+                        "id": "web-sync", "direction": "pull",
+                        "peer_path": sync_peer})
+                    t0 = time.perf_counter()
+                    check((await call("POST", api + "/sync/web-sync/run"))[
+                        "started"], "web: the sync not started")
+
+                    async def sync_done():
+                        r = (await call(
+                            "GET", api + "/sync/web-sync/results"))["data"]
+                        return r.get("last_status") and r
+                    synced = await until(sync_done, "the sync")
+                    out["sync_s"] = time.perf_counter() - t0
                 t0 = time.perf_counter()
                 render = (await call("GET", base + "/plus/metrics",
                                      raw=True)).decode()
                 out["render_ms"] = (time.perf_counter() - t0) * 1e3
-                return task1, task2, snap1, snap2, ver, zdir, zbytes, render
-        task1, task2, snap1, snap2, ver, zdir, zbytes, render = \
+                return (task1, task2, snap1, snap2, ver, zdir, zbytes, render,
+                        synced)
+        task1, task2, snap1, snap2, ver, zdir, zbytes, render, synced = \
             asyncio.run(drive())
     except BaseException:
         for n, p in logs.items():
@@ -1985,7 +2204,285 @@ def web_phase(seed: int, root: str) -> dict:
           f"web: a kernel did not launch in the server: {launches}")
     out["launches"] = launches
     out["render_lines"] = len(render.splitlines())
+    if sync_peer:
+        rep = synced["report"]
+        check(synced["last_status"] == "success"
+              and rep["snapshots_synced"] > 0
+              and rep["chunks_transferred"] > 0, f"web: the sync: {synced}")
+        fams = {}
+        for line in render.splitlines():
+            if line.startswith("pbs_plus_sync_") and "_total" in line:
+                fams[line.split("{")[0].split(" ")[0]] = float(
+                    line.rsplit(" ", 1)[1])
+        for fam in ("jobs", "snapshots", "chunks_probed", "probe_batches",
+                    "chunks_transferred", "bytes_wire", "bytes_logical"):
+            check(fams.get(f"pbs_plus_sync_{fam}_total", 0) > 0,
+                  f"web: the render's pbs_plus_sync_{fam}_total: {fams}")
+        out["sync"] = {"report": rep, "render": fams}
     out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def kinds_phase(dev, P, stream0: np.ndarray, k1_cuts: list, seed: int,
+                root: str, wire: str) -> dict:
+    """The chunker kinds a backup row may name besides ``"cuda"``, against
+    K1's cuts of stream 0 from phase ``main``: the native scan built by
+    g++ from ``chunker/csrc/``; stream 0 through the scalar numpy scan (16
+    MiB blocks with their 63-byte context, on 8 threads), the native scan
+    (one thread and its segment threads) and the vector scan, then
+    through the streaming chunkers of the ``scalar``, ``vector`` and
+    ``sidecar:<addr>`` kinds in 4 MiB pieces, the sidecar a port
+    ``DedupService`` on the card behind ``serve_sidecar``; K1 over the
+    same stream beside them.  Then a port ``Server`` on the card runs one
+    local-target job of stream 0's files (the store phase's file sizes)
+    per row kind, ``"cpu"`` (the JAX default), ``"sidecar:<addr>"`` and
+    ``"cuda"``: every file reads back, the three payload indexes are
+    equal, the cpu job launches no kernel (hashlib inline and one insert
+    a chunk through the index's host mirror, as the reference's inline
+    path does), the sidecar's K1 and K2 run for the sidecar job, the
+    cuda job launches K1, K2 and K3; the scan-byte counters
+    and the render's ``pbs_plus_chunker_scan_bytes_total`` show nothing
+    degraded (bytes under native, vector and sidecar, none under
+    vector-numpy, no vector fallback, each stream bound to its kind).
+    The server's datastore stays for the web phase's sync row."""
+    from pbs_plus_tpu_torch.chunker import cpu, native, observe, vector
+    from pbs_plus_tpu_torch.chunker.spec import WINDOW, select_cuts
+    from pbs_plus_tpu_torch.ops import cuckoo, rolling_hash, sha256
+    from pbs_plus_tpu_torch.pxar.transfer import SplitReader
+    from pbs_plus_tpu_torch.server import database
+    from pbs_plus_tpu_torch.server.backup_job import make_chunker_factory
+    from pbs_plus_tpu_torch.server.metrics import MetricsRegistry
+    from pbs_plus_tpu_torch.server.store import Server, ServerConfig
+    from pbs_plus_tpu_torch.sidecar import serve_sidecar
+
+    t_phase = time.perf_counter()
+    check(wire == "grpc", "the sidecar kind dials gRPC: grpc and msgpack "
+                          "must import")
+    n = len(stream0)
+    t0 = time.perf_counter()
+    built = native.available() and native.vec_available()
+    build_s = time.perf_counter() - t0
+    check(built, f"the native scan did not build with g++ from "
+                 f"{native._SRC} into {native._SO}")
+    # the vector self-test runs once a process, before the counters below:
+    # its numpy reference scan is the one count under vector-numpy
+    pre = observe.snapshot()["scan_bytes"].get("vector-numpy", 0)
+    check(vector.available(), "the vector scan failed its self-test")
+    obs0 = observe.snapshot()
+    out = {"phase": "kinds", "stream_bytes": n, "g++_build_s": build_s,
+           "vector_impl": vector.scan_impl_name(),
+           "self_test_vector_numpy_bytes":
+               obs0["scan_bytes"].get("vector-numpy", 0) - pre,
+           "scans": {}}
+    block = 16 << 20
+
+    def numpy_block(off):
+        return cpu.candidates(stream0[off:off + block], P,
+                              prefix=stream0[max(0, off - WINDOW + 1):off],
+                              global_offset=off, force_numpy=True)
+
+    def numpy_scan():
+        with ThreadPoolExecutor(8) as pool:
+            return np.concatenate(list(pool.map(numpy_block,
+                                                range(0, n, block))))
+
+    for name, threads, fn in (
+            ("numpy", 8, numpy_scan),
+            ("native", 1, lambda: native.candidates(stream0, P, threads=1)),
+            ("native_segments", os.cpu_count(),
+             lambda: native.candidates(stream0, P)),
+            ("vector", 1, lambda: vector.candidates(stream0, P))):
+        t0 = time.perf_counter()
+        ends = fn()
+        s = time.perf_counter() - t0
+        check(select_cuts(ends, n, P) == k1_cuts,
+              f"kinds: the {name} scan's cuts != K1's of stream 0")
+        out["scans"][name] = {"threads": threads, "seconds": s,
+                              "mib_s": n / 2**20 / s,
+                              "candidates": len(ends)}
+    # K1 over the same stream: the kernel alone, and with the upload and
+    # the candidates' download
+    tables = rolling_hash.device_tables(P, dev)
+    d0 = torch.from_numpy(stream0.copy()).to(dev)[None]
+    k1_ms = cuda_ms(lambda: rolling_hash.candidate_mask(
+        d0, tables, P.mask, P.magic), 3)
+    del d0
+    t0 = time.perf_counter()
+    k1_ends = rolling_hash.candidate_ends_host(stream0, P, device=dev)
+    k1_s = time.perf_counter() - t0
+    check(select_cuts(k1_ends, n, P) == k1_cuts, "kinds: K1 over stream 0")
+    out["scans"]["k1"] = {"kernel_ms": k1_ms,
+                          "kernel_mib_s": n / 2**20 / (k1_ms / 1e3),
+                          "with_copies_s": k1_s,
+                          "with_copies_mib_s": n / 2**20 / k1_s}
+
+    sc_server, sc_port, svc = serve_sidecar("127.0.0.1:0", params=P,
+                                            device=dev, max_workers=8)
+    addr = f"127.0.0.1:{sc_port}"
+    # no filesystem is frozen or snapshotted: the local jobs read the
+    # tree live
+    from pbs_plus_tpu_torch.agent import snapshots
+    orig_snapshots = snapshots.SnapshotManager
+
+    class DirectSnapshots(orig_snapshots):
+        def __init__(self, **kw):
+            super().__init__(prefer_direct=True, **kw)
+    snapshots.SnapshotManager = DirectSnapshots
+    # each stream a sidecar factory degrades to the CPU chunker at open
+    import logging
+
+    degraded = []
+
+    class Degradations(logging.Handler):
+        def emit(self, record):
+            degraded.append(record.getMessage())
+    sc_log = logging.getLogger("pbs_plus_tpu_torch.sidecar.client")
+    sc_handler = Degradations(logging.WARNING)
+    sc_log.addHandler(sc_handler)
+    loop = asyncio.new_event_loop()
+    run = loop.run_until_complete
+    server = None
+    try:
+        # the streaming chunkers of each kind, 4 MiB pieces
+        out["streams"] = {}
+        for kind in ("scalar", "vector", f"sidecar:{addr}"):
+            factory = make_chunker_factory(kind, device=dev)
+            bind = getattr(factory, "bind_stream", None)
+            chunker = (bind(P) if bind else factory)(P)
+            want = {"scalar": "cpu", "vector": "vector"}.get(kind, "sidecar")
+            check(chunker.backend_name == want,
+                  f"kinds: the {kind} stream bound {chunker.backend_name}")
+            cuts = []
+            t0 = time.perf_counter()
+            for off in range(0, n, PIECE_BYTES):
+                cuts += chunker.feed(stream0[off:off + PIECE_BYTES].tobytes())
+            cuts += chunker.finalize()
+            s = time.perf_counter() - t0
+            check(cuts == k1_cuts, f"kinds: the {kind} stream's cuts != K1's")
+            out["streams"][kind.split(":")[0]] = {"seconds": s,
+                                                  "mib_s": n / 2**20 / s}
+            if kind.startswith("sidecar:"):
+                factory.client.close()
+
+        # one local-target job per row kind through a port Server
+        tree = os.path.join(root, "tree", "d")
+        os.makedirs(tree)
+        files = store_files(n, seed + 600)
+        for i, (s, e) in enumerate(files):
+            stream0[s:e].tofile(os.path.join(tree, f"f{i:05d}"))
+        server = Server(ServerConfig(
+            state_dir=os.path.join(root, "state"),
+            cert_dir=os.path.join(root, "certs"),
+            datastore_dir=os.path.join(root, "ds"), chunk_avg=P.avg_size),
+            device=dev)
+        run(server.start())
+        server.scheduler.tick_s = 3600.0
+        server.db.upsert_target("loc", "local",
+                                root_path=os.path.dirname(tree))
+        rows = {"cpu": "k-cpu", f"sidecar:{addr}": "k-sidecar",
+                "cuda": "k-cuda"}
+        ds = server.datastore.datastore
+        out["jobs"] = {}
+        payloads = {}
+        for kind, jid in rows.items():
+            server.db.upsert_backup_job(database.BackupJobRow(
+                id=jid, target="loc", source_path="", backup_id=jid,
+                chunker=kind))
+            before = (rolling_hash.KERNEL.launches, sha256.KERNEL.launches,
+                      cuckoo.stats["device_probes"])
+            async def job(jid=jid):
+                check(server.enqueue_backup(jid), f"kinds: {jid} not queued")
+                await server.job_queue.drain(timeout=900)
+            t0 = time.perf_counter()
+            run(job())
+            s = time.perf_counter() - t0
+            launches = dict(zip(
+                ("candidate_mask", "sha256_chunks", "cuckoo_probe"),
+                (a - b for a, b in zip(
+                    (rolling_hash.KERNEL.launches, sha256.KERNEL.launches,
+                     cuckoo.stats["device_probes"]), before))))
+            row = server.db.get_backup_job(jid)
+            check(row.last_status == "success",
+                  f"kinds: job {jid}: {row.last_status} {row.last_error}")
+            ref = ds.last_snapshot("host", jid)
+            man = ds.load_manifest(ref)
+            label = kind.split(":")[0]
+            check(man.get("chunker_backend") == label,
+                  f"kinds: {jid} ran on {man.get('chunker_backend')}")
+            if kind == "cpu":
+                # the reference's inline path: hashlib, then one insert a
+                # chunk through the index's host mirror; no batch to probe
+                check(not any(launches.values()),
+                      f"kinds: the cpu job launched a kernel: {launches}")
+            elif kind == "cuda":
+                check(all(launches.values()),
+                      f"kinds: a kernel did not launch for {jid}: {launches}")
+            else:
+                check(launches["candidate_mask"] > 0
+                      and launches["sha256_chunks"] > 0,
+                      f"kinds: the sidecar's K1 or K2 did not launch for "
+                      f"{jid}: {launches}")
+            rd = SplitReader.open_snapshot(ds, ref)
+            ents = [e for e in rd.entries() if e.is_file]
+            check(len(ents) == len(files), f"kinds: {jid} entries")
+            for e in ents:
+                i = int(os.path.basename(e.path)[1:])
+                s_, e_ = files[i]
+                check(np.array_equal(np.frombuffer(rd.read_file(e), np.uint8),
+                                     stream0[s_:e_]),
+                      f"kinds: {jid} {e.path} does not read back")
+            payloads[label] = list(rd.payload_index.records())
+            out["jobs"][label] = {"seconds": s, "mib_s": n / 2**20 / s,
+                                  "launches": launches,
+                                  "chunks": man["payload_chunks"]}
+        check(payloads["cpu"] == payloads["sidecar"] == payloads["cuda"],
+              "kinds: the cpu, sidecar and cuda jobs' payload indexes differ")
+        render = MetricsRegistry(server).render()
+    finally:
+        if server is not None:
+            run(server.stop())
+        loop.close()
+        sc_server.stop(grace=None)
+        snapshots.SnapshotManager = orig_snapshots
+        sc_log.removeHandler(sc_handler)
+    # the sidecar serves its own params only: a sidecar row's meta stream
+    # (128 KiB chunks) degrades to the CPU chunker at open, as in the JAX
+    # package; the payload streams must not
+    meta_avg = max(1024, min(P.avg_size, 128 << 10))
+    want = 1 if meta_avg != P.avg_size else 0
+    check(len(degraded) == want
+          and all(f"(avg={meta_avg}," in m for m in degraded),
+          f"kinds: sidecar streams degraded: {degraded}")
+    obs = observe.snapshot()
+    delta = {b: v - obs0["scan_bytes"].get(b, 0)
+             for b, v in obs["scan_bytes"].items()}
+    series = {}
+    for line in render.splitlines():
+        if line.startswith("pbs_plus_chunker_"):
+            series[line.rsplit(" ", 1)[0]] = float(line.rsplit(" ", 1)[1])
+    rendered = {k.split('"')[1]: v for k, v in series.items()
+                if k.startswith("pbs_plus_chunker_scan_bytes_total{")}
+    check(delta.get("native", 0) > 0 and delta.get("vector", 0) > 0
+          and delta.get("sidecar", 0) >= 2 * n
+          and delta.get("vector-numpy", 0) == 0
+          and obs["events"].get("vector_fallbacks", 0)
+          == obs0["events"].get("vector_fallbacks", 0),
+          f"kinds: a scan degraded: {delta}, events {obs['events']}")
+    check(rendered.get("native", 0) > 0 and rendered.get("vector", 0) > 0
+          and rendered.get("sidecar", 0) > 0
+          and rendered.get("vector-numpy", 0)
+          == obs0["scan_bytes"].get("vector-numpy", 0)
+          and series.get("pbs_plus_chunker_vector_fallbacks_total") == 0,
+          f"kinds: the render's chunker families: {series}")
+    out.update(scan_bytes=delta, rendered_scan_bytes=rendered,
+               launches={k: sum(j["launches"][k] for j in out["jobs"].values())
+                         for k in ("candidate_mask", "sha256_chunks",
+                                   "cuckoo_probe")},
+               sidecar_stats={k: v for k, v in svc.get_stats({}).items()
+                              if k != "chunker"},
+               sidecar_degraded_streams=degraded,
+               datastore=os.path.join(root, "ds"),
+               phase_s=time.perf_counter() - t_phase)
     return out
 
 
@@ -2598,8 +3095,9 @@ def index_phase(dev, seed: int) -> dict:
     check(probe_exact(idx, sample, truth, "probe after the reload") == before,
           "answers changed across the reload")
 
-    # discards: 10% of the preload, then none of them probes present
-    gone = pre[::10]
+    # discards: every INDEX_DISCARD_EVERY-th preloaded digest, then none
+    # of them probes present
+    gone = pre[::INDEX_DISCARD_EVERY]
     t0 = time.perf_counter()
     check(all(idx.discard_many_acked(gone)), "every discard is acked")
     discard_s = time.perf_counter() - t0
@@ -3518,6 +4016,8 @@ def main() -> int:
         emit(store_line)
         ver_line = verification_phase(dev, stores, clock_hz)
         emit(ver_line)
+        sync_line = sync_phase(dev, stores, store_root)
+        emit(sync_line)
         mount_line = mount_phase(dev, stores, args.seed, store_root, clock_hz)
         emit(mount_line)
         del stores
@@ -3539,13 +4039,25 @@ def main() -> int:
             shutil.rmtree(server_root, ignore_errors=True)
     finally:
         shutil.rmtree(job_root, ignore_errors=True)
-    # the server and agent commands as two processes, driven over HTTP
-    web_root = tempfile.mkdtemp(prefix="web-", dir=SCRATCH)
+    # the host chunker kinds and the sidecar kind against K1's cuts, then
+    # one local-target job per row kind through a port Server; its store
+    # is the web phase's sync peer
+    kinds_root = tempfile.mkdtemp(prefix="kinds-", dir=SCRATCH)
     try:
-        web_line = web_phase(args.seed, web_root)
-        emit(web_line)
+        kinds_line = kinds_phase(dev, P, streams[names[0]],
+                                 [e for _, e in ref_bounds[names[0]]],
+                                 args.seed, kinds_root, wire)
+        emit(kinds_line)
+        # the server and agent commands as two processes, driven over HTTP
+        web_root = tempfile.mkdtemp(prefix="web-", dir=SCRATCH)
+        try:
+            web_line = web_phase(args.seed, web_root,
+                                 sync_peer=kinds_line["datastore"])
+            emit(web_line)
+        finally:
+            shutil.rmtree(web_root, ignore_errors=True)
     finally:
-        shutil.rmtree(web_root, ignore_errors=True)
+        shutil.rmtree(kinds_root, ignore_errors=True)
     store_launches = {k: sum(r["launches"][k] for st in store_line["stores"].values()
                              for r in st["backups"])
                       for k in ("candidate_mask", "sha256_chunks", "cuckoo_probe")}
@@ -4001,6 +4513,8 @@ def main() -> int:
          "mount_launches": mount_line["launches"]["cuckoo_probe"],
          "backup_job_launches": job_line["launches"]["cuckoo_probe"],
          "server_launches": server_line["launches"]["cuckoo_probe"],
+         "sync_launches": sync_line["launches"]["cuckoo_probe"],
+         "kinds_launches": kinds_line["launches"]["cuckoo_probe"],
          "web_launches": web_line["launches"]["cuckoo_probe"],
          "index": {"launches": ix["k3_launches"],
                    "table_bytes": INDEX_BUDGET_MB << 20,
@@ -4087,6 +4601,7 @@ def main() -> int:
              "mount": mount_line["launches"]["candidate_mask"],
              "backup_job": job_line["launches"]["candidate_mask"],
              "server": server_line["launches"]["candidate_mask"],
+             "kinds": kinds_line["launches"]["candidate_mask"],
              "web": web_line["launches"]["candidate_mask"]},
          "max_abs_err": int(k1_err > 0),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
@@ -4106,6 +4621,7 @@ def main() -> int:
              "mount": mount_line["launches"]["sha256_chunks"],
              "backup_job": job_line["launches"]["sha256_chunks"],
              "server": server_line["launches"]["sha256_chunks"],
+             "kinds": kinds_line["launches"]["sha256_chunks"],
              "web": web_line["launches"]["sha256_chunks"]},
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms,

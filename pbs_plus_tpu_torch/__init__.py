@@ -13,8 +13,13 @@ kernel's plain PyTorch version.
   (streaming writers), the ``"cuda"`` backend factories, VerifyPipeline,
   SimilarityModel.
 - sidecar: the dedup sidecar's gRPC service (DedupService,
-  serve_sidecar) and the wire half of its client; ``python -m
-  pbs_plus_tpu_torch sidecar`` runs it.
+  serve_sidecar) and its client (SidecarClient with its breaker and
+  retries, SidecarChunker, the ResilientSidecarFactory of a
+  ``"sidecar:<host:port>"`` row); ``python -m pbs_plus_tpu_torch
+  sidecar`` runs the service.
+- chunker: the spec, the scan counters and the host chunker kinds of a
+  ``cpu``/``scalar``/``vector`` row (CpuChunker, the g++-built native
+  scan, VectorChunker and ResilientVectorFactory): host code, no kernel.
 - pxar: the store's dedup-index tier -- DedupIndex (the ``index=`` of a
   JAX ``ChunkStore``; K3 on the card), the spillable DigestLog and the
   delta tier's SimilarityIndex; snapshots, segments and manifests are
@@ -56,6 +61,11 @@ kernel's plain PyTorch version.
   job (the agent pulls the snapshot over ``pxar/remote.py``), and the
   agent's job children (``agent/jobproc.py``); ``python -m
   pbs_plus_tpu_torch server`` / ``agent`` / ``agent-job`` run them.
+  Datastore replication (``pxar/syncwire.py``, ``server/sync_job.py``):
+  dedup-aware, resumable sync local to local or over its HTTP wire,
+  membership batches probed by the destination's index (K3 on the card).
+  The agent's registry and self-update (``agent/{registry,updater}.py``)
+  and ``python -m pbs_plus_tpu_torch signer``.
 - convert: index and chunker state carried across from the JAX package.
 """
 

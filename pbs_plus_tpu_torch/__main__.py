@@ -80,9 +80,16 @@ JSON and exits 1 where the answer is not ok.  ``restore`` queues a
 restore (``--target``, ``--snapshot``, ``--destination``,
 ``--subpath``).
 
-The reference's ``signer`` command needs ``agent/updater.py``, which is
-not in the port yet: ``signer`` takes the reference's flags and exits
-nonzero naming it.
+    python -m pbs_plus_tpu_torch signer keygen --key release.pem
+    python -m pbs_plus_tpu_torch signer sign --key release.pem --file agent.pyz
+    python -m pbs_plus_tpu_torch signer verify --key release.pem.pub \
+        --file agent.pyz
+
+mints an Ed25519 release key (``<key>`` and ``<key>.pub``), signs an
+agent artifact (``<file>.sig``; Ed25519 or ECDSA P-256 keys) and checks
+a signature as the agent's updater does (``agent/updater.py``), exiting
+1 on a bad one.  Keys and signatures are the JAX package's bytes: either
+package's ``signer`` verifies what the other signed.
 """
 
 from __future__ import annotations
@@ -248,8 +255,51 @@ def _cmd_agent_job(args: argparse.Namespace) -> int:
 
 
 def _cmd_signer(args: argparse.Namespace) -> int:
-    raise SystemExit("signer: agent artifact signing needs agent/updater.py, "
-                     "which is not in pbs_plus_tpu_torch yet")
+    """Sign/verify agent artifacts (reference: cmd/signer — mints the
+    ECDSA/Ed25519 signatures the updater verifies)."""
+    from cryptography.hazmat.primitives import serialization
+    from cryptography.hazmat.primitives.asymmetric import ed25519
+
+    from .agent.updater import verify_signature
+    from .utils import fsio
+
+    if args.action == "keygen":
+        key = ed25519.Ed25519PrivateKey.generate()
+        priv = key.private_bytes(
+            serialization.Encoding.PEM,
+            serialization.PrivateFormat.PKCS8,
+            serialization.NoEncryption())
+        pub = key.public_key().public_bytes(
+            serialization.Encoding.PEM,
+            serialization.PublicFormat.SubjectPublicKeyInfo)
+        fsio.write_private_bytes(args.key, priv)
+        fsio.write_bytes(f"{args.key}.pub", pub)
+        print(f"wrote {args.key} and {args.key}.pub")
+        return 0
+    if not args.file:
+        print(f"signer {args.action} requires --file", flush=True)
+        return 2
+    data = fsio.read_bytes(args.file)
+    if args.action == "sign":
+        key = serialization.load_pem_private_key(
+            fsio.read_bytes(args.key), password=None)
+        from cryptography.hazmat.primitives import hashes
+        from cryptography.hazmat.primitives.asymmetric import ec
+        if isinstance(key, ed25519.Ed25519PrivateKey):
+            sig = key.sign(data)
+        elif isinstance(key, ec.EllipticCurvePrivateKey):
+            sig = key.sign(data, ec.ECDSA(hashes.SHA256()))
+        else:
+            print("unsupported key type", flush=True)
+            return 2
+        fsio.write_bytes(f"{args.file}.sig", sig)
+        print(f"wrote {args.file}.sig ({len(sig)} bytes)")
+        return 0
+    # verify
+    sig = fsio.read_bytes(args.sig or f"{args.file}.sig")
+    ok = verify_signature(data, sig, fsio.read_bytes(args.key))
+    print("OK" if ok else "BAD SIGNATURE")
+    return 0 if ok else 1
 
 
 def _cmd_sidecar(args: argparse.Namespace) -> int:
@@ -515,8 +565,7 @@ def main(argv: list[str] | None = None) -> int:
     j.add_argument("--destination", default="")
     j.add_argument("--subpath", default="")
     j.set_defaults(fn=_cmd_job)
-    sg = sub.add_parser("signer", help="sign/verify agent artifacts "
-                                       "(not ported yet)")
+    sg = sub.add_parser("signer", help="sign/verify agent artifacts")
     sg.add_argument("action", choices=["keygen", "sign", "verify"])
     sg.add_argument("--key", required=True,
                     help="private key (sign/keygen) or public key (verify)")

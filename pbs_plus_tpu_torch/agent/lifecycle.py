@@ -13,25 +13,24 @@ default (each with its own data connection — same wire behavior) and
 supports subprocess isolation via ``python -m pbs_plus_tpu_torch
 agent-job`` (``agent/jobproc.py``).
 
-A copy of the JAX package's ``agent/lifecycle.py`` without self-update:
-``AgentConfig``, and ``AgentLifecycle`` with the handlers ``ping``,
+A copy of the JAX package's ``agent/lifecycle.py``: ``AgentConfig``, and
+``AgentLifecycle`` with every handler of the reference (``ping``,
 ``target_status``, ``backup``, ``cleanup``, ``restore``,
-``cleanup_restore``, ``filetree``, ``drives`` and ``profile``, in-process
-or subprocess job isolation, the reconnect loop and the drive-inventory
-push.  Its code is byte for byte apart from its imports, which name the
-port's own modules, and its logger (``logging``; the scoped logger is a
-``LoggerAdapter`` carrying the same ``agent`` field).  Not ported yet:
-self-update (``agent/updater.py``; a config asking for it raises
-``ValueError`` at construction) and the agent-side source cross-check;
-their handlers ``update_now`` and ``verify_start`` answer an error naming
-what is missing.  One addition: with ``tls=None`` (the transport's plain
-loopback mode) the agent's handshakes claim its hostname in
+``cleanup_restore``, ``filetree``, ``verify_start``, ``drives``,
+``profile`` and ``update_now``), in-process or subprocess job isolation,
+the reconnect loop, the drive-inventory push and self-update (the boot
+``Watchdog``, the poller and the server-pushed ``update_now`` over
+``agent/updater.py``).  Its code is byte for byte apart from its
+imports, which name the port's own modules, and its logger
+(``logging``; the scoped logger is a ``LoggerAdapter`` carrying the same
+``agent`` field).  One addition: with ``tls=None`` (the transport's
+plain loopback mode) the agent's handshakes claim its hostname in
 ``X-PBS-Plus-Loopback-CN``, so a plain loopback server admits it under
 that name; its jobs then run as tasks (``subprocess`` isolation, whose
-children dial mTLS sessions of their own, raises ``ValueError``).  And a
-backup's job child takes the daemon's snapshot preference (``SnapshotManager(prefer_direct=...)``), so an agent
-told to read trees directly never has its children freeze or snapshot a
-filesystem either.
+children dial mTLS sessions of their own, raises ``ValueError``).  And
+a backup's job child takes the daemon's snapshot preference
+(``SnapshotManager(prefer_direct=...)``), so an agent told to read trees
+directly never has its children freeze or snapshot a filesystem either.
 """
 
 from __future__ import annotations
@@ -45,7 +44,6 @@ from dataclasses import dataclass
 from ..arpc import Router, Session, TlsClientConfig, connect_to_server
 from ..arpc.agents_manager import HDR_BACKUP_ID, HDR_RESTORE_ID
 from ..arpc.mux import MuxConnection
-from ..arpc.router import HandlerError
 from ..arpc.transport import HDR_LOOPBACK_CN
 from .agentfs import AgentFSServer
 from .snapshots import Snapshot, SnapshotManager
@@ -54,12 +52,6 @@ L = logging.getLogger(__name__)
 
 BACKOFF_MIN_S = 0.5
 BACKOFF_MAX_S = 30.0
-
-UPDATE_NOT_PORTED = ("update_now: agent self-update (agent/updater.py) is "
-                     "not in pbs_plus_tpu_torch yet")
-VERIFY_NOT_PORTED = ("verify_start: the agent-side source cross-check "
-                     "(agent/lifecycle.py's _verify_start) is not in "
-                     "pbs_plus_tpu_torch yet")
 
 
 @dataclass
@@ -104,16 +96,13 @@ class AgentLifecycle:
             raise ValueError("job_isolation='subprocess' needs the agent's "
                              "certificate (tls): a job child dials its own "
                              "mTLS session; use 'task' on plain loopback")
-        if all((config.update_base_url, config.update_binary_path,
-                config.update_state_dir, config.update_signer_pub)):
-            raise ValueError("self-update needs agent/updater.py, not yet "
-                             "ported; leave the update_* fields empty")
         self.config = config
         self.snapshots = snapshot_manager or SnapshotManager()
         self.router = Router()
         self.jobs: dict[str, ActiveJob] = {}
         self.conn: MuxConnection | None = None
         self._stop = asyncio.Event()
+        self._update_lock: asyncio.Lock | None = None   # made on first use
         self._register_handlers()
         self.log = logging.LoggerAdapter(L, {"agent": config.hostname})
 
@@ -136,19 +125,13 @@ class AgentLifecycle:
         r.handle("restore", self._restore_start)
         r.handle("cleanup_restore", self._cleanup)
         r.handle("filetree", self._filetree)
-        r.handle("verify_start", self._not_ported(VERIFY_NOT_PORTED))
+        r.handle("verify_start", self._verify_start)
         r.handle("drives", self._drives)
         # CPU-profile capture on demand (the agent-side pprof analog,
         # reference internal/agent/cli/entry.go:59-79)
         from ..utils.profiling import profile_rpc
         r.handle("profile", profile_rpc)
-        r.handle("update_now", self._not_ported(UPDATE_NOT_PORTED))
-
-    @staticmethod
-    def _not_ported(message: str):
-        async def handler(req, ctx):
-            raise HandlerError(message, status=501)
-        return handler
+        r.handle("update_now", self._update_now)
 
     async def _drives(self, req, ctx):
         from .drives import enumerate_drives
@@ -317,18 +300,154 @@ class AgentLifecycle:
                     pass
         return {"ok": True, "found": job is not None}
 
+    async def _verify_start(self, req, ctx):
+        """Agent-side hash of a local file for spot-check verification
+        (reference: internal/agent/verification/handler.go:70-93)."""
+        import hashlib
+        path = req.payload["path"]
+        h = hashlib.sha256()
+        def _hash():
+            with open(path, "rb") as f:
+                while True:
+                    b = f.read(4 << 20)
+                    if not b:
+                        break
+                    h.update(b)
+            return h.hexdigest()
+        try:
+            digest = await asyncio.get_running_loop().run_in_executor(None, _hash)
+        except OSError as e:
+            from ..arpc.router import HandlerError
+            raise HandlerError(str(e), status=404)
+        return {"sha256": digest}
+
+    # -- self-update (reference: internal/agent/updater + binswap) ---------
+    @property
+    def _update_configured(self) -> bool:
+        c = self.config
+        return bool(c.update_base_url and c.update_binary_path
+                    and c.update_state_dir and c.update_signer_pub)
+
+    async def _update_once(self) -> dict:
+        """One poll→verify→stage→swap cycle.  The swapped artifact takes
+        effect on the next service start; the boot-time Watchdog rolls
+        back if the new version never reaches a healthy connect.
+        Serialized: concurrent pushes/poller ticks must never run two
+        swap cycles over one state dir (the second would clobber the
+        rollback copy with the new binary)."""
+        if not self._update_configured:
+            return {"updated": False, "message": "updates not configured"}
+        if self._update_lock is None:
+            self._update_lock = asyncio.Lock()
+        async with self._update_lock:
+            return await self._update_once_locked()
+
+    async def _update_once_locked(self) -> dict:
+        import hashlib
+        import ssl
+
+        import aiohttp
+
+        from .updater import BinSwap, SwapState, Updater
+        c = self.config
+        cur = "unknown"
+        try:
+            with open(c.update_binary_path, "rb") as f:
+                cur = hashlib.sha256(f.read()).hexdigest()[:16]
+        except OSError:
+            pass
+        swap = BinSwap(SwapState(c.update_binary_path, c.update_state_dir))
+        if swap._marker().get("state") == "swapped":
+            # a swapped-but-never-booted update is the rollback baseline:
+            # swapping again would os.replace the unproven binary over
+            # previous.bin and lose the last KNOWN-GOOD version
+            return {"updated": False, "version": cur,
+                    "message": "update pending restart; not re-swapping"}
+        up = Updater(swap, current_version=cur,
+                     signing_pubkey_pem=c.update_signer_pub)
+        connector = None
+        if c.update_ca_path:
+            connector = aiohttp.TCPConnector(
+                ssl=ssl.create_default_context(cafile=c.update_ca_path))
+        try:
+            async with aiohttp.ClientSession(connector=connector) as http:
+                version = await up.check_and_stage(http, c.update_base_url)
+            if version is None:
+                return {"updated": False, "version": cur,
+                        "message": "up to date"}
+            swap.swap()
+            return {"updated": True, "version": version,
+                    "message": "staged + swapped; effective on restart"}
+        except Exception as e:
+            return {"updated": False, "version": cur,
+                    "message": f"update failed: {type(e).__name__}: {e}"}
+
+    async def _update_now(self, req, ctx):
+        """Server-pushed immediate update (reference: push_update.go →
+        the agent's update RPC)."""
+        res = await self._update_once()
+        self.log.info("push update: %s", res["message"])
+        return res
+
+    async def _update_poller(self) -> None:
+        while not self._stop.is_set():
+            await asyncio.sleep(self.config.update_interval_s)
+            res = await self._update_once()
+            msg = res.get("message", "")
+            if res.get("updated"):
+                self.log.info("auto-update: %s", msg)
+            elif ("up to date" not in msg
+                    and "pending restart" not in msg):
+                # recurring silent failures would leave the fleet
+                # quietly unpatched — surface every failed cycle (but a
+                # healthy swap awaiting restart is not a failure)
+                self.log.warning("auto-update: %s", msg)
+
+    def _update_watchdog_on_boot(self) -> "object | None":
+        """Run the rollback watchdog before the first connect; returns
+        the Watchdog so a healthy connect can commit the update."""
+        if not self._update_configured:
+            return None
+        from .updater import BinSwap, SwapState, Watchdog
+        wd = Watchdog(BinSwap(SwapState(self.config.update_binary_path,
+                                        self.config.update_state_dir)))
+        state = wd.on_boot()
+        if state != "no-pending":
+            self.log.info("update watchdog: %s", state)
+        return wd
+
     # -- connection loop ---------------------------------------------------
     async def run(self) -> None:
         """Reconnect loop with exponential backoff + jitter."""
-        await self._run_loop(BACKOFF_MIN_S)
+        backoff = BACKOFF_MIN_S
+        watchdog = self._update_watchdog_on_boot()
+        updater_task = None
+        if self._update_configured and self.config.update_interval_s > 0:
+            updater_task = asyncio.create_task(self._update_poller())
+        try:
+            await self._run_loop(backoff, watchdog)
+        finally:
+            if updater_task is not None:
+                updater_task.cancel()
+                try:
+                    await updater_task
+                except asyncio.CancelledError:
+                    pass        # its own cancellation: expected teardown
+                except Exception as e:
+                    self.log.warning("update poller died during "
+                                     "shutdown: %s", e)
 
-    async def _run_loop(self, backoff: float) -> None:
+    async def _run_loop(self, backoff: float, watchdog) -> None:
         while not self._stop.is_set():
             try:
                 self.conn = await connect_to_server(
                     self.config.server_host, self.config.server_port,
                     self.config.tls, headers=self._headers())
                 self.log.info("control session connected")
+                if watchdog is not None:
+                    # healthy connect on the new binary: commit the swap
+                    watchdog.mark_healthy()
+                    watchdog = None
                 backoff = BACKOFF_MIN_S
                 pusher = None
                 if self.config.drive_update_interval_s > 0:

@@ -1,8 +1,13 @@
 """Chunker-backend observability, copied from the JAX package's
 ``chunker/observe.py``: which scan implementation touched how many payload
-bytes, plus named event counters.  The port's device scan reports under the
-backend label ``"cuda"`` (ops/rolling_hash.py); prefix/halo bytes are not
-counted, so the figures compare across backends.
+bytes, plus named event counters.  Backend labels: ``numpy`` (the scalar
+scan, chunker/cpu.py), ``native`` (its C++ rolling scan, chunker/native.py),
+``vector`` (the vectorized native scan, chunker/vector.py),
+``vector-numpy`` (its blocked-numpy fallback), ``sidecar`` (bytes shipped
+to a dedup sidecar's chunker) and ``cuda`` (the port's device scan, K1,
+ops/rolling_hash.py).  Events: ``vector_fallbacks`` (a stream bound to the
+scalar chunker after the vector self-test failed).  Prefix/halo bytes are
+not counted, so the figures compare across backends.
 """
 
 from __future__ import annotations

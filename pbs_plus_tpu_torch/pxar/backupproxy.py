@@ -15,10 +15,11 @@ half-snapshot visible (crash-safety rule from SURVEY §5.3).
 A copy of the JAX package's ``pxar/backupproxy.py``, its code byte for
 byte apart from its imports, which name the port's own modules, its
 logger (``logging``), and one change: ``LocalStore`` takes ``device=``
-(default ``"cuda"``) for its datastore, and with no
-``chunker_factory``/``batch_hasher`` given builds the port's ``"cuda"``
-ones on that device (the reference's defaults are its CPU chunker and
-inline hashlib, which the port has no copy of); ``ingest_collector()``
+(default ``"cuda"``) for its datastore, and with no ``chunker_factory``
+given builds the port's ``"cuda"`` chunker and batch hasher on that
+device (the reference's defaults are its CPU chunker and inline
+hashlib; the port's CPU kinds are ``server/backup_job.py``'s, passed
+as a factory with no batch hasher); ``ingest_collector()``
 returns the port's ``collector_for`` on the same device."""
 
 from __future__ import annotations
@@ -214,8 +215,10 @@ class LocalStore:
     ``device`` (default ``"cuda"``; raises without a card, ``"cpu"``
     runs the plain versions) carries the whole write path: the chunk
     store's index probes there (K3), and unless the caller passes its
-    own, sessions cut with the port's ``"cuda"`` chunker (K1) and digest
-    with its ``"cuda"`` batch hasher (K2) on it."""
+    own chunker factory, sessions cut with the port's ``"cuda"`` chunker
+    (K1) and digest with its ``"cuda"`` batch hasher (K2) on it; a
+    caller's factory without a batch hasher (the CPU and sidecar kinds)
+    digests inline with hashlib, as the reference's stores do."""
 
     def __init__(self, base_dir: str, params: ChunkerParams, *,
                  chunker_factory: "ChunkerFactory | None" = None,
@@ -244,8 +247,8 @@ class LocalStore:
         if chunker_factory is None:
             chunker_factory = make_chunker_factory("cuda",
                                                    device=self.device)
-        if batch_hasher is None:
-            batch_hasher = make_batch_hasher("cuda", device=self.device)
+            if batch_hasher is None:
+                batch_hasher = make_batch_hasher("cuda", device=self.device)
         self._chunker_factory = chunker_factory
         self.batch_hasher = batch_hasher
         # >=1 pipelines each session's payload stream (pxar/pipeline.py);

@@ -47,11 +47,12 @@ A copy of the JAX package's ``pxar/pbsstore.py``, its code byte for byte
 apart from its imports, which name the port's own modules (the lazy ones
 too), its logger (``logging``), and one change: ``PBSStore`` takes
 ``device=`` (default ``"cuda"``; raises without a card, ``"cpu"`` runs
-the plain versions) and, with no ``chunker_factory``/``batch_hasher``
-given, builds the port's ``"cuda"`` ones on that device, as the port's
+the plain versions) and, with no ``chunker_factory`` given, builds the
+port's ``"cuda"`` chunker and batch hasher on that device, as the port's
 ``LocalStore`` does (the reference's defaults are its CPU chunker and
-inline hashlib, which the port has no copy of).  So a session cuts with
-K1 and digests with K2; the server holds the dedup index.
+inline hashlib; a caller's CPU-kind factory without a batch hasher
+digests inline with hashlib).  So a default session cuts with K1 and
+digests with K2; the server holds the dedup index.
 """
 
 from __future__ import annotations
@@ -672,9 +673,11 @@ class PBSStore:
     (reference: backupproxy.NewPBSStore).
 
     ``device`` (default ``"cuda"``; raises without a card, ``"cpu"`` runs
-    the plain versions): unless the caller passes its own, sessions cut
-    with the port's ``"cuda"`` chunker (K1) and digest with its
-    ``"cuda"`` batch hasher (K2) on it."""
+    the plain versions): unless the caller passes its own chunker
+    factory, sessions cut with the port's ``"cuda"`` chunker (K1) and
+    digest with its ``"cuda"`` batch hasher (K2) on it; a caller's factory
+    without a batch hasher (the CPU and sidecar kinds) digests inline
+    with hashlib, as the reference's stores do."""
 
     def __init__(self, cfg: PBSConfig, params: ChunkerParams, *,
                  chunker_factory: "ChunkerFactory | None" = None,
@@ -684,8 +687,8 @@ class PBSStore:
         if chunker_factory is None:
             chunker_factory = make_chunker_factory("cuda",
                                                    device=self.device)
-        if batch_hasher is None:
-            batch_hasher = make_batch_hasher("cuda", device=self.device)
+            if batch_hasher is None:
+                batch_hasher = make_batch_hasher("cuda", device=self.device)
         self.cfg = cfg
         self.params = params
         self._chunker_factory = chunker_factory

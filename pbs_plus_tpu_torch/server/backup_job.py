@@ -24,13 +24,17 @@ byte apart from its imports, which name the port's own modules, its
 logger (``logging``; a job's scoped logger is a ``LoggerAdapter``
 carrying the same ``job_id``/``backup_id`` fields) and the chunker
 kinds.  The job runs no device work of its own: it gets its device from
-the ``LocalStore(device=...)`` it is handed, whose sessions cut with K1,
-digest with K2 and probe with K3.  ``make_chunker_factory`` and
-``make_batch_hasher`` serve ``"cuda"`` (``models/backends.py``) on the
-device they are given, the store's; the CPU kinds (``""``, ``cpu``,
-``scalar``, ``vector``), ``sidecar:<host:port>`` and ``tpu`` raise
-``ValueError`` naming ``"cuda"``: the CPU chunkers and the sidecar
-factory are not in the port yet.
+the ``LocalStore(device=...)`` it is handed.
+``make_chunker_factory(kind, *, cpu_backend=None, device="cuda")``,
+``make_batch_hasher`` and ``validate_chunker_kind`` serve the port's
+``"cuda"`` (``models/backends.py``: K1 per stream, K2 through the
+feeder on the device given, the store's, whose writer probes each batch
+with K3) and the reference's kinds: ``""``, ``cpu``, ``scalar`` and
+``vector`` through the port's ``chunker/{cpu,native,vector}.py``,
+``sidecar:<host:port>`` through its ``ResilientSidecarFactory``; these
+hash inline with hashlib and insert chunk by chunk through the index's
+host mirror, as the reference's writer does.  The JAX package's ``tpu``
+kind raises ``ValueError`` naming that package.
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ from typing import Callable
 from ..agent.agentfs import AgentFSClient
 from ..arpc import Session
 from ..arpc.agents_manager import AgentsManager
+from ..chunker import CpuChunker
 from ..pxar.backupproxy import BackupSession, LocalStore
 from ..pxar.format import (
     Entry, KIND_BLOCKDEV, KIND_DEVICE, KIND_DIR, KIND_FIFO, KIND_FILE,
@@ -97,21 +102,22 @@ def match_exclusion(rel: str, patterns: list[str]) -> bool:
     return False
 
 
-def _not_served(kind: str) -> ValueError:
-    return ValueError(f"chunker backend {kind!r} is not served by the port "
-                      "(want cuda; the cpu | scalar | vector kinds "
-                      "(chunker/cpu.py, chunker/vector.py, "
-                      "chunker/native.py) and sidecar:<host:port> "
-                      "(sidecar/client.py's SidecarChunker) are not in "
-                      "pbs_plus_tpu_torch yet, and tpu is the JAX "
-                      "package's)")
+def _tpu_refused() -> ValueError:
+    return ValueError("chunker backend 'tpu' is the JAX package's "
+                      "(pbs_plus_tpu, TpuChunker); the port's device kind "
+                      "is cuda")
 
 
 def validate_chunker_kind(kind: str) -> None:
     """Cheap syntactic validation (no clients constructed — web CRUD path)."""
-    if kind == "cuda":
+    if kind in ("", "cpu", "scalar", "vector", "cuda") \
+            or kind.startswith("sidecar:"):
         return
-    raise _not_served(kind)
+    if kind == "tpu":
+        raise _tpu_refused()
+    raise ValueError(f"unknown chunker backend {kind!r} "
+                     "(want cpu | scalar | vector | cuda | "
+                     "sidecar:<host:port>)")
 
 
 def validate_pipeline_workers(n) -> int:
@@ -128,21 +134,70 @@ def validate_pipeline_workers(n) -> int:
 def make_batch_hasher(kind: str, *, device="cuda"):
     """Batched digest backend matching the chunker backend: the cuda path
     hashes emitted chunks in device batches (K2 through the feeder of
-    ``device``, the store's)."""
-    if kind != "cuda":
-        raise _not_served(kind)
-    from ..models.backends import make_batch_hasher as cuda_hasher
-    return cuda_hasher("cuda", device=device)
+    ``device``, the store's); cpu/sidecar use the writer's inline
+    hashlib path."""
+    if kind == "cuda":
+        from ..models.backends import make_batch_hasher as cuda_hasher
+        return cuda_hasher("cuda", device=device)
+    if kind == "tpu":
+        raise _tpu_refused()
+    return None
 
 
-def make_chunker_factory(kind: str, *, device="cuda"):
-    """The one-line config change (BASELINE.json): chunker = cuda, one
-    ``CudaChunker`` (K1) per stream on ``device``, the store's.  Invoked
-    inside ``start_session``, which job code runs off the event loop."""
-    if kind != "cuda":
-        raise _not_served(kind)
-    from ..models.backends import make_chunker_factory as cuda_factory
-    return cuda_factory("cuda", device=device)
+def resolve_cpu_scan_backend(cpu_backend: str | None = None) -> str:
+    """CPU scan implementation for cpu-kind chunkers: explicit
+    ``cpu_backend`` (ServerConfig.chunker_backend) wins, empty falls
+    back to ``PBS_PLUS_CHUNKER_BACKEND`` (conf.Env.chunker_backend),
+    default scalar.  Unknown values degrade to scalar with a warning —
+    a typo'd env var must not take the fleet down."""
+    from ..utils import conf
+    backend = cpu_backend or conf.env().chunker_backend or "scalar"
+    if backend in ("scalar", "cpu"):
+        return "scalar"
+    if backend == "vector":
+        return "vector"
+    L.warning("unknown chunker backend %r (want scalar | vector); "
+              "using the scalar scan", backend)
+    return "scalar"
+
+
+def make_chunker_factory(kind: str, *, cpu_backend: str | None = None,
+                         device="cuda"):
+    """The one-line config change (BASELINE.json):
+    chunker = cuda | cpu | scalar | vector | sidecar:<host:port>.
+
+    ``cuda``: one ``CudaChunker`` (K1) per stream on ``device``, the
+    store's.  ``cpu_backend`` selects the scan implementation for the
+    cpu kinds (''/'cpu'): 'vector' routes through chunker/vector.py's
+    ``ResilientVectorFactory`` (self-test-gated, pinned per stream at
+    bind_stream time, degrades to scalar like sidecar degrades to CPU);
+    anything else keeps the scalar ``CpuChunker``.  Explicit kinds
+    'scalar'/'vector' pin the implementation regardless of conf.
+    Invoked inside ``start_session``, which job code runs off the event
+    loop."""
+    if kind == "cuda":
+        from ..models.backends import make_chunker_factory as cuda_factory
+        return cuda_factory("cuda", device=device)
+    if kind == "tpu":
+        raise _tpu_refused()
+    if kind.startswith("sidecar:"):
+        # breaker-gated factory: degrades to the CPU chunker when the
+        # sidecar is unreachable, decided per stream at OPEN time only
+        # (sidecar/client.py ResilientSidecarFactory docstring)
+        from ..sidecar.client import ResilientSidecarFactory
+        return ResilientSidecarFactory(kind.split(":", 1)[1])
+    if kind == "scalar":
+        return lambda p: CpuChunker(p)
+    if kind == "vector" or (kind in ("", "cpu")
+                            and resolve_cpu_scan_backend(cpu_backend)
+                            == "vector"):
+        from ..chunker.vector import ResilientVectorFactory
+        return ResilientVectorFactory()
+    if kind not in ("", "cpu"):
+        raise ValueError(f"unknown chunker backend {kind!r} "
+                         "(want cpu | scalar | vector | cuda | "
+                         "sidecar:<host:port>)")
+    return lambda p: CpuChunker(p)
 
 
 @dataclass

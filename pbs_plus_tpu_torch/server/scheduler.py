@@ -9,10 +9,8 @@ pending mode + TriggerPendingVerifications.
 A copy of the JAX package's ``server/scheduler.py``, its code byte for
 byte apart from its imports, which name the port's own modules
 (``calendar``, ``database``, the jobs manager), and its logger
-(``logging``).  A port server's sync enqueue raises
-``NotImplementedError`` until the sync job is ported: ``tick`` then
-raises after the tick's backups and verifications have fired, and
-``run`` logs it and ticks on (the reference's panic containment).
+(``logging``).  A due sync row fires through the server's
+``_enqueue_sync`` (``server/sync_job.py``), as in the reference.
 """
 
 from __future__ import annotations

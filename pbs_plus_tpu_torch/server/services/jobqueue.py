@@ -24,10 +24,9 @@ its logger (``logging``; the scoped logger is a ``LoggerAdapter``) and
 one change: the service takes ``device=`` (default ``"cuda"``; raises
 without a card), the server's, and hands it to the per-job
 ``LocalStore`` and ``PBSStore`` and their chunker factory and batch
-hasher (``make_chunker_factory(kind, device=)``, which serves
-``"cuda"``; the reference's ``cpu_backend`` has no counterpart).  So a
-row whose chunker kind the port does not serve (``BackupJobRow``'s
-``"cpu"`` default among them) is recorded as that run's error, as a
+hasher (``make_chunker_factory(kind, cpu_backend=, device=)``).  A
+row whose chunker kind the port does not serve (the JAX package's
+``tpu``, or an unknown kind) is recorded as that run's error, as a
 missing PBS target is, instead of raising out of the scheduler tick;
 the three rejections share ``_reject``.
 """
@@ -259,7 +258,8 @@ class JobQueueService:
                           fingerprint=config.pbs_fingerprint),
                 ChunkerParams(avg_size=config.chunk_avg),
                 chunker_factory=make_chunker_factory(
-                    kind, device=self.device),
+                    kind, cpu_backend=config.chunker_backend,
+                    device=self.device),
                 batch_hasher=make_batch_hasher(kind, device=self.device),
                 pipeline_workers=config.pipeline_workers,
                 device=self.device)
@@ -270,7 +270,8 @@ class JobQueueService:
                 config.datastore_dir,
                 ChunkerParams(avg_size=config.chunk_avg),
                 chunker_factory=make_chunker_factory(
-                    row.chunker, device=self.device),
+                    row.chunker, cpu_backend=config.chunker_backend,
+                    device=self.device),
                 batch_hasher=make_batch_hasher(row.chunker,
                                                device=self.device),
                 pbs_format=config.datastore_format == "pbs",

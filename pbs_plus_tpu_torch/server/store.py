@@ -19,7 +19,7 @@ docs/architecture.md "Service map".
 
 A copy of the JAX package's ``server/store.py``, its code byte for byte
 apart from its imports, which name the port's own modules, its logger
-(``logging``; the scoped logger is a ``LoggerAdapter``) and five
+(``logging``; the scoped logger is a ``LoggerAdapter``) and two
 changes.  ``Server(config, *, device="cuda")`` resolves its device
 first (``utils/device.py``, with a CUDA device's index named, since the
 jobs' writer threads and the GC's executor thread launch on it), so it
@@ -28,14 +28,13 @@ state directory; it hands that device to its ``LocalStore`` (whose
 sessions cut with K1, digest with K2 and probe with K3), to the
 ``JobQueueService``'s per-job stores and to the verification job.
 ``ServerConfig.chunker`` defaults to ``"cuda"``, the port's chunker
-kind, where the reference's defaults to ``"cpu"``.  ``_enqueue_sync``
-raises ``NotImplementedError`` naming ``server/sync_job.py``, which is
-not in the port yet, and ``Server`` raises it, naming the missing
-modules, for a ``ServerConfig`` field that only they read when the field
-is set (``_UNPORTED_FIELDS``).  The web API (``server/web.py``), the
-notification tracker (``server/notifications.py``) and the ``server``
-command (``python -m pbs_plus_tpu_torch server``) wrap it as the
-reference's do; ``notifications`` is the sink the caller attaches.
+kind, where the reference's defaults to ``"cpu"``; the CPU kinds and
+``sidecar:<host:port>`` are served too (``server/backup_job.py``), so a
+row a JAX server wrote at its default runs here.  The web API
+(``server/web.py``), the notification tracker
+(``server/notifications.py``) and the ``server`` command (``python -m
+pbs_plus_tpu_torch server``) wrap it as the reference's do;
+``notifications`` is the sink the caller attaches.
 """
 
 from __future__ import annotations
@@ -62,16 +61,6 @@ from .services import (CheckpointService, ChunkCacheService,
                        SyncStateService)
 
 L = logging.getLogger(__name__)
-
-SYNC_NOT_PORTED = ("sync jobs: the sync job (server/sync_job.py) is not "
-                   "in pbs_plus_tpu_torch yet")
-
-# ServerConfig fields kept for parity that only modules not yet in the
-# port read: set to anything but their default, they would do nothing
-_UNPORTED_FIELDS = {
-    "chunker_backend": "the CPU chunker kinds (chunker/cpu.py, "
-                       "chunker/vector.py)",
-}
 
 
 def make_upid(kind: str, job_id: str) -> str:
@@ -211,11 +200,6 @@ class Server:
     """Owns every server-side component; start()/stop() lifecycle."""
 
     def __init__(self, config: ServerConfig, *, device="cuda"):
-        for name, missing in _UNPORTED_FIELDS.items():
-            if getattr(config, name):
-                raise NotImplementedError(
-                    f"ServerConfig.{name}: {missing} is not in "
-                    f"pbs_plus_tpu_torch yet")
         self.device = resolve_indexed(device)
         self.config = config
         os.makedirs(config.state_dir, exist_ok=True)
@@ -246,7 +230,8 @@ class Server:
         self.datastore = LocalStore(
             config.datastore_dir, params,
             chunker_factory=make_chunker_factory(
-                config.chunker, device=self.device),
+                config.chunker, cpu_backend=config.chunker_backend,
+                device=self.device),
             batch_hasher=make_batch_hasher(config.chunker,
                                            device=self.device),
             pbs_format=config.datastore_format == "pbs",
@@ -563,4 +548,5 @@ class Server:
         enqueue_verification(self, v, device=self.device)
 
     async def _enqueue_sync(self, s: dict) -> None:
-        raise NotImplementedError(SYNC_NOT_PORTED)
+        from .sync_job import enqueue_sync
+        enqueue_sync(self, s)

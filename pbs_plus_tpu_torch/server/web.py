@@ -30,20 +30,14 @@ ticket-signing key (``server/pbsauth.py``, the web/auth.go analog).
 
 A copy of the JAX package's ``server/web.py``, its code byte for byte
 apart from its imports, which name the port's own modules, its logger
-(``logging``) and four changes.  The five sync routes answer 501 with
-an error naming ``server/sync_job.py``, which is not in the port yet
-(the reference's listing, upsert, delete, run and results; a sync row
-could be stored but never run).  ``POST .../verification/{id}/run``
+(``logging``) and three changes.  ``POST .../verification/{id}/run``
 hands the server's device to ``enqueue_verification``, so K2 re-hashes
 on the server's card.  The agent bundle (``/plus/agent/pyz``) packs this
 package, ``pbs_plus_tpu_torch``, and runs its ``__main__.main``; its
 freshness scan looks at every file of the package, not only ``*.py``,
 since the package also ships CUDA sources (``ops/csrc/*.cu``) and the
 simhash projection (``ops/simhash_projection.npz``).  A backup job's
-chunker defaults to the server's (``"cuda"`` in the port), and a body
-naming a kind the port does not serve (``"cpu"``, which a JAX server
-accepts) is refused by ``validate_chunker_kind`` with an error naming
-the missing modules.
+chunker defaults to the server's (``"cuda"`` in the port).
 """
 
 from __future__ import annotations
@@ -64,7 +58,6 @@ from ..utils import atomicio, fsio, trace
 from ..utils.singleflight import SingleFlight
 from . import database
 from .metrics import MetricsRegistry
-from .store import SYNC_NOT_PORTED
 
 if TYPE_CHECKING:
     from .store import Server
@@ -729,10 +722,63 @@ def build_app(server: "Server", *, require_auth: bool = True) -> web.Application
                                              device=server.device)})
 
     # -- sync jobs (datastore replication, docs/sync.md) -------------------
-    async def sync_not_ported(request):
-        # every sync route: the sync job is not in the port, so a row
-        # stored here could never run
-        return web.json_response({"error": SYNC_NOT_PORTED}, status=501)
+    async def sync_list(request):
+        rows = []
+        for r in server.db.list_sync_jobs():
+            r = dict(r)
+            # the peer bearer token grants write access to the remote
+            # store — it must never echo back to API readers
+            r["remote_token"] = "***" if r.get("remote_token") else ""
+            rows.append(r)
+        return web.json_response({"data": rows})
+
+    async def sync_upsert(request):
+        b = await request.json()
+        token = b.get("remote_token", "")
+        if token == "***":
+            # a client resubmitting the redacted listing keeps the
+            # stored secret instead of clobbering it with the mask
+            row = server.db.get_sync_job(b.get("id", ""))
+            token = row["remote_token"] if row else ""
+        try:
+            server.db.upsert_sync_job(
+                b["id"], direction=b.get("direction", "pull"),
+                remote_url=b.get("remote_url", ""),
+                remote_token=token,
+                peer_path=b.get("peer_path", ""),
+                backup_type=b.get("backup_type", ""),
+                backup_id=b.get("backup_id", ""),
+                namespace=b.get("namespace", ""),
+                schedule=b.get("schedule", ""),
+                enabled=bool(b.get("enabled", True)))
+        except (KeyError, ValueError) as e:
+            return web.json_response({"error": str(e)}, status=400)
+        return web.json_response({"ok": True})
+
+    async def sync_delete(request):
+        server.db.delete_sync_job(request.match_info["id"])
+        return web.json_response({"ok": True})
+
+    async def sync_run(request):
+        from .sync_job import enqueue_sync
+        row = server.db.get_sync_job(request.match_info["id"])
+        if row is None:
+            return web.json_response({"error": "unknown job"}, status=404)
+        return web.json_response({"started": enqueue_sync(server, row)})
+
+    async def sync_results(request):
+        row = server.db.get_sync_job(request.match_info["id"])
+        if row is None:
+            return web.json_response({"error": "unknown job"}, status=404)
+        report = {}
+        if row.get("last_report"):
+            try:
+                report = json.loads(row["last_report"])
+            except ValueError:
+                pass
+        return web.json_response({"data": {
+            "id": row["id"], "last_run_at": row["last_run_at"],
+            "last_status": row["last_status"], "report": report}})
 
     app.router.add_get("/plus/healthz", healthz)
     app.router.add_get("/plus/readyz", readyz)
@@ -1242,11 +1288,11 @@ echo "  --bootstrap-token <token_id:secret>"
         await server.prune.delete_snapshot(ref)
         return web.json_response({"ok": True})
 
-    app.router.add_get("/api2/json/d2d/sync", sync_not_ported)
-    app.router.add_post("/api2/json/d2d/sync", sync_not_ported)
-    app.router.add_delete("/api2/json/d2d/sync/{id}", sync_not_ported)
-    app.router.add_post("/api2/json/d2d/sync/{id}/run", sync_not_ported)
-    app.router.add_get("/api2/json/d2d/sync/{id}/results", sync_not_ported)
+    app.router.add_get("/api2/json/d2d/sync", sync_list)
+    app.router.add_post("/api2/json/d2d/sync", sync_upsert)
+    app.router.add_delete("/api2/json/d2d/sync/{id}", sync_delete)
+    app.router.add_post("/api2/json/d2d/sync/{id}/run", sync_run)
+    app.router.add_get("/api2/json/d2d/sync/{id}/results", sync_results)
     app.router.add_get("/api2/json/d2d/verification", verification_list)
     app.router.add_post("/api2/json/d2d/verification", verification_upsert)
     app.router.add_post("/api2/json/d2d/verification/{id}/run",

@@ -39,7 +39,6 @@ from pbs_plus_tpu_torch.agent import drives as port_drives
 from pbs_plus_tpu_torch.agent import lifecycle as port_lc
 from pbs_plus_tpu_torch.agent import snapshots as port_snaps
 from pbs_plus_tpu_torch.arpc import agents_manager as port_am
-from pbs_plus_tpu_torch.arpc import router as port_router
 from pbs_plus_tpu_torch.arpc import transport as port_tr
 from pbs_plus_tpu_torch.server import database as port_db
 from pbs_plus_tpu_torch.utils import crypto as port_crypto
@@ -316,34 +315,46 @@ def test_agent_handlers_match_reference(tmp_path):
     ref, ref_methods = asyncio.run(calls(ref_lc))
     port, port_methods = asyncio.run(calls(port_lc))
     assert ref == port
-    # the restore, profile and subprocess-isolation parts are ported;
-    # self-update and the source cross-check answer that they are not
+    # every handler of the reference is served, self-update and the
+    # source cross-check included
     assert port_methods == ref_methods == [
         "backup", "cleanup", "cleanup_restore", "drives", "filetree",
         "ping", "profile", "restore", "target_status", "update_now",
         "verify_start"]
 
-    async def unported():
-        lc = port_lc.AgentLifecycle(port_lc.AgentConfig(
-            hostname="h", server_host="x", server_port=1, tls=None))
+    async def verify_and_update(lc_mod, **cfg):
+        lc = lc_mod.AgentLifecycle(lc_mod.AgentConfig(
+            hostname="h", server_host="x", server_port=1, tls=None, **cfg))
         out = []
-        for method in ("update_now", "verify_start"):
-            with pytest.raises(port_router.HandlerError) as e:
-                await lc.router._handlers[method](SimpleReq({"path": "/"}),
-                                                  None)
-            out.append((str(e.value), e.value.status))
+        for method, payload in (
+                ("verify_start", {"path": str(tmp_path / "b.txt")}),
+                ("verify_start", {"path": str(tmp_path / "nope")}),
+                ("verify_start", {"path": str(tmp_path / "a")}),
+                ("update_now", {})):
+            try:
+                out.append(await lc.router._handlers[method](
+                    SimpleReq(payload), None))
+            except Exception as e:
+                out.append((type(e).__name__, str(e),
+                            getattr(e, "status", None)))
         return out
-    assert asyncio.run(unported()) == [
-        (port_lc.UPDATE_NOT_PORTED, 501), (port_lc.VERIFY_NOT_PORTED, 501)]
-    assert "agent/updater.py" in port_lc.UPDATE_NOT_PORTED
-    for kw, what in (({"job_isolation": "subprocess"}, "certificate"),
-                     ({"update_base_url": "u", "update_binary_path": "b",
-                       "update_state_dir": "s", "update_signer_pub": b"k"},
-                      "agent/updater.py")):
-        with pytest.raises(ValueError, match=what):
-            port_lc.AgentLifecycle(port_lc.AgentConfig(
-                hostname="h", server_host="x", server_port=1, tls=None,
-                **kw))
+    got = asyncio.run(verify_and_update(port_lc))
+    assert got == asyncio.run(verify_and_update(ref_lc))
+    assert got[0] == {"sha256": hashlib.sha256(b"x").hexdigest()}
+    assert got[1][0] == "HandlerError" and got[1][2] == 404
+    assert got[3] == {"updated": False, "message": "updates not configured"}
+    # configured self-update is taken at construction, as the reference's;
+    # subprocess isolation without a certificate is refused
+    cfg = {"update_base_url": "http://127.0.0.1:1",
+           "update_binary_path": str(tmp_path / "agent.pyz"),
+           "update_state_dir": str(tmp_path / "st"),
+           "update_signer_pub": b"k", "update_interval_s": 0}
+    port_lc.AgentLifecycle(port_lc.AgentConfig(
+        hostname="h", server_host="x", server_port=1, tls=None, **cfg))
+    with pytest.raises(ValueError, match="certificate"):
+        port_lc.AgentLifecycle(port_lc.AgentConfig(
+            hostname="h", server_host="x", server_port=1, tls=None,
+            job_isolation="subprocess"))
 
 
 class SimpleReq:

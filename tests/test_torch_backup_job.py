@@ -631,18 +631,62 @@ def test_s3_target_matches_reference(tmp_path, pki):
         {k: v for k, v in objects.items() if k != "skip.tmp"}
 
 
-def test_chunker_kinds_name_cuda(tmp_path):
-    """The port's job serves ``"cuda"`` (on the device given, the
-    store's); every other kind, the JAX package's included, raises a
-    ``ValueError`` naming it."""
+def test_chunker_kinds_name_cuda(tmp_path, monkeypatch):
+    """The port's job serves the reference's kinds as the reference does
+    (the cpu kinds through the port's ``chunker/`` copies with no batch
+    hasher, ``sidecar:<host:port>`` through its
+    ``ResilientSidecarFactory``, unknown kinds refused alike) and
+    ``"cuda"`` (on the device given, the store's); the JAX package's
+    ``"tpu"`` raises a ``ValueError`` naming that package."""
+    p, rp = ChunkerParams(**PARAMS), RefParams(**PARAMS)
+    for kind in ("", "cpu", "scalar", "vector", "sidecar:127.0.0.1:1"):
+        port_bj.validate_chunker_kind(kind)
+        ref_bj.validate_chunker_kind(kind)
+        pf = port_bj.make_chunker_factory(kind)
+        rf = ref_bj.make_chunker_factory(kind)
+        assert type(pf).__name__ == type(rf).__name__
+        if not kind.startswith("sidecar:"):
+            assert type(pf(p)).__name__ == type(rf(rp)).__name__
+        else:
+            pf.client.close()
+            rf.client.close()
+        assert port_bj.make_batch_hasher(kind) is None
+        assert ref_bj.make_batch_hasher(kind) is None
+    for backend in ("vector", "scalar", "cpu", "bogus", ""):
+        assert port_bj.resolve_cpu_scan_backend(backend) == \
+            ref_bj.resolve_cpu_scan_backend(backend)
+        assert type(port_bj.make_chunker_factory(
+            "cpu", cpu_backend=backend)(p)).__name__ == type(
+            ref_bj.make_chunker_factory("cpu", cpu_backend=backend)(rp)
+        ).__name__
+    # an empty choice falls back to PBS_PLUS_CHUNKER_BACKEND
+    from pbs_plus_tpu.utils import conf as ref_conf
+    from pbs_plus_tpu_torch.utils import conf as port_conf
+    monkeypatch.setenv("PBS_PLUS_CHUNKER_BACKEND", "vector")
+    try:
+        for conf in (ref_conf, port_conf):
+            conf.env.cache_clear()
+        assert port_bj.resolve_cpu_scan_backend() == \
+            ref_bj.resolve_cpu_scan_backend() == "vector"
+    finally:
+        monkeypatch.delenv("PBS_PLUS_CHUNKER_BACKEND")
+        for conf in (ref_conf, port_conf):
+            conf.env.cache_clear()
     port_bj.validate_chunker_kind("cuda")
     assert port_bj.validate_pipeline_workers(2) == \
         ref_bj.validate_pipeline_workers(2) == 2
-    for kind in ("", "cpu", "scalar", "vector", "tpu", "sidecar:h:1", "x"):
-        for call in (port_bj.validate_chunker_kind,
-                     port_bj.make_chunker_factory, port_bj.make_batch_hasher):
-            with pytest.raises(ValueError, match="want cuda"):
-                call(kind)
+    for call in (port_bj.validate_chunker_kind,
+                 port_bj.make_chunker_factory, port_bj.make_batch_hasher):
+        with pytest.raises(ValueError, match="'tpu' is the JAX package's"):
+            call("tpu")
+    for call, ref_call in ((port_bj.validate_chunker_kind,
+                            ref_bj.validate_chunker_kind),
+                           (port_bj.make_chunker_factory,
+                            ref_bj.make_chunker_factory)):
+        with pytest.raises(ValueError, match="unknown chunker backend 'x'"):
+            call("x")
+        with pytest.raises(ValueError, match="unknown chunker backend 'x'"):
+            ref_call("x")
     with pytest.raises(ValueError):
         port_bj.validate_pipeline_workers(65)
     factory = port_bj.make_chunker_factory("cuda", device="cpu")

@@ -929,3 +929,93 @@ def test_web_on_card(cuda, tmp_path):
     assert set(launches) == {"candidate_mask", "sha256_chunks",
                              "cuckoo_probe"}
     assert all(float(v) > 0 for v in launches.values()), launches
+
+
+@pytest.mark.parametrize("pbs", [False, True], ids=["tpxd", "pbs"])
+def test_sync_on_card_equals_cpu(cuda, tmp_path, pbs):
+    """A store synced into a destination on the card and one on the CPU:
+    the same files, the same stats bar the seconds, and K3 launched at the
+    card's destination for every membership batch."""
+    import io
+    import os
+    from pbs_plus_tpu_torch.pxar.backupproxy import LocalStore
+    from pbs_plus_tpu_torch.pxar.datastore import Datastore
+    from pbs_plus_tpu_torch.pxar.format import KIND_DIR, KIND_FILE, Entry
+    from pbs_plus_tpu_torch.pxar.syncwire import (LocalSyncDest,
+                                                  LocalSyncSource, run_sync)
+    src = LocalStore(str(tmp_path / "src"), TEST_PARAMS, pbs_format=pbs,
+                     dedup_index_mb=1, device=cuda)
+    for t, seed in ((1, 1), (2, 2)):
+        sess = src.start_session(backup_type="host", backup_id="a",
+                                 backup_time=1_700_000_000 + t)
+        sess.writer.write_entry(Entry(path="", kind=KIND_DIR))
+        sess.writer.write_entry_reader(
+            Entry(path="f", kind=KIND_FILE),
+            io.BytesIO(_bytes(300_000, seed).tobytes()))
+        sess.finish()
+
+    def files(base):
+        out = {}
+        for dp, _dn, fn in os.walk(base):
+            for f in fn:
+                p = os.path.join(dp, f)
+                if not os.path.relpath(p, base).startswith(
+                        (".chunkindex", ".sync")):
+                    out[os.path.relpath(p, base)] = open(p, "rb").read()
+        return out
+    got = {}
+    for dev in ("cpu", cuda):
+        dst = Datastore(str(tmp_path / str(dev)), pbs_format=pbs, device=dev)
+        cuckoo.stats["device_probes"] = 0
+        stats = run_sync(LocalSyncSource(src.datastore), LocalSyncDest(dst))
+        stats.pop("wall_s")
+        got[str(dev)] = (stats, files(dst.base), cuckoo.stats["device_probes"])
+    (s_cpu, f_cpu, _), (s_card, f_card, k3) = got["cpu"], got[str(cuda)]
+    assert s_card == s_cpu and f_card == f_cpu
+    assert s_card["snapshots_synced"] == 2 and k3 >= s_card["probe_batches"]
+
+
+def test_cpu_and_sidecar_kinds_on_card(cuda, tmp_path):
+    """A store on the card fed by the ``"cpu"`` kind launches no kernel:
+    the chunker is the host's, hashlib digests inline and each chunk is
+    inserted through the index's host mirror, as the reference's inline
+    path does; the ``sidecar:`` kind against a port sidecar on the card
+    cuts with its K1 and K2; both give the cuts of the ``"cuda"`` kind,
+    which launches K1, K2 and K3."""
+    import io
+    from pbs_plus_tpu_torch.pxar.backupproxy import LocalStore
+    from pbs_plus_tpu_torch.pxar.format import KIND_DIR, KIND_FILE, Entry
+    from pbs_plus_tpu_torch.server.backup_job import (make_batch_hasher,
+                                                      make_chunker_factory)
+    from pbs_plus_tpu_torch.sidecar import serve_sidecar
+    server, port, _svc = serve_sidecar("127.0.0.1:0", params=TEST_PARAMS,
+                                       device=cuda)
+    data = _bytes(1 << 20, 9).tobytes()
+    out = {}
+    try:
+        for kind in ("cpu", f"sidecar:127.0.0.1:{port}", "cuda"):
+            store = LocalStore(str(tmp_path / kind.split(":")[0]), TEST_PARAMS,
+                               chunker_factory=make_chunker_factory(
+                                   kind, device=cuda),
+                               batch_hasher=make_batch_hasher(kind,
+                                                              device=cuda),
+                               dedup_index_mb=1, device=cuda)
+            before = (rolling_hash.KERNEL.launches, sha256.KERNEL.launches,
+                      cuckoo.stats["device_probes"])
+            sess = store.start_session(backup_type="host", backup_id="k")
+            sess.writer.write_entry(Entry(path="", kind=KIND_DIR))
+            sess.writer.write_entry_reader(Entry(path="f", kind=KIND_FILE),
+                                           io.BytesIO(data))
+            sess.finish()
+            after = (rolling_hash.KERNEL.launches, sha256.KERNEL.launches,
+                     cuckoo.stats["device_probes"])
+            rd = store.open_snapshot(store.datastore.list_snapshots()[0])
+            assert rd.read_file(rd.lookup("f")) == data
+            out[kind.split(":")[0]] = (list(rd.payload_index.records()),
+                                       [a - b for a, b in zip(after, before)])
+    finally:
+        server.stop(grace=None)
+    assert out["cpu"][0] == out["sidecar"][0] == out["cuda"][0]
+    assert out["cpu"][1] == [0, 0, 0]
+    assert out["sidecar"][1][0] > 0 and out["sidecar"][1][1] > 0
+    assert all(out["cuda"][1])

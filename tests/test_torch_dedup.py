@@ -268,6 +268,27 @@ with tempfile.TemporaryDirectory() as tmp:
                                                          rd.payload_index)
                                   for i in range(len(ix))})
 
+# the host chunker kinds (the native scan built by g++ from the package's
+# own source), the agent's registry and its update swap
+from pbs_plus_tpu_torch.chunker import CpuChunker, candidates, native, vector
+cand = candidates(data, TEST_PARAMS, force_numpy=True)
+assert native.available()
+assert list(native.candidates(data, TEST_PARAMS)) == list(cand)
+assert list(vector.candidates(data, TEST_PARAMS)) == list(cand)
+assert vector.available()
+from pbs_plus_tpu_torch.agent.registry import open_registry
+from pbs_plus_tpu_torch.agent.updater import BinSwap, SwapState, Watchdog
+with tempfile.TemporaryDirectory() as tmp:
+    reg = open_registry(tmp + "/agent.json")
+    reg.set_secret("token", b"t")
+    assert reg.get_secret("token") == b"t"
+    open(tmp + "/live", "wb").write(b"old")
+    swap = BinSwap(SwapState(tmp + "/live", tmp + "/st"))
+    swap.stage(b"new", "v2")
+    swap.swap()
+    assert Watchdog(swap).on_boot() == "grace"
+    assert swap.rollback() and open(tmp + "/live", "rb").read() == b"old"
+
 bad = [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
 assert not bad, bad
 print(len(mods))
@@ -278,7 +299,7 @@ def test_port_imports_without_jax_or_reference():
     r = subprocess.run([sys.executable, "-c", _GATE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 120
+    assert int(r.stdout.split()[-1]) >= 126
 
 
 _STORE_GATE = r"""
@@ -331,6 +352,38 @@ with tempfile.TemporaryDirectory() as tmp:
     rd = ls.open_snapshot(new)
     assert rd.read_file(rd.lookup("f")) == b"gate" + data[4:]
     assert fs.view.generation == 1 and fs.journal.stats()["edges"] == 0
+
+    # sync: the three snapshots mirrored local to local into a store on
+    # the CPU (its index probes each batch); a second run moves nothing
+    from pbs_plus_tpu_torch.pxar.datastore import Datastore
+    from pbs_plus_tpu_torch.pxar.syncwire import (LocalSyncDest,
+                                                  LocalSyncSource, run_sync)
+    mirror = Datastore(tmp + "/mirror", device="cpu")
+    st = run_sync(LocalSyncSource(ls.datastore), LocalSyncDest(mirror),
+                  job_id="g", state_root=tmp + "/mirror")
+    assert st["snapshots_synced"] == 3 and st["chunks_transferred"] > 0
+    st = run_sync(LocalSyncSource(ls.datastore), LocalSyncDest(mirror),
+                  job_id="g", state_root=tmp + "/mirror")
+    assert st["chunks_transferred"] == 0 and st["snapshots_skipped"] == 3
+
+    # the host chunker kinds cut the file as the first backup's K1 did,
+    # hashing inline
+    from pbs_plus_tpu_torch.server.backup_job import (make_batch_hasher,
+                                                      make_chunker_factory)
+    first = ls.open_snapshot(ls.datastore.list_snapshots()[0])
+    for kind in ("scalar", "vector", "cpu"):
+        cs = LocalStore(tmp + "/" + kind, TEST_PARAMS, dedup_index_mb=1,
+                        chunker_factory=make_chunker_factory(kind),
+                        batch_hasher=make_batch_hasher(kind), device="cpu")
+        assert cs.batch_hasher is None
+        sess = cs.start_session(backup_type="host", backup_id="gate")
+        sess.writer.write_entry(Entry(path="", kind=KIND_DIR, mode=0o40755))
+        sess.writer.write_entry_reader(Entry(path="f", kind=KIND_FILE,
+                                             size=len(data)), io.BytesIO(data))
+        sess.finish()
+        rd = cs.open_snapshot(cs.datastore.list_snapshots()[0])
+        assert list(rd.payload_index.records()) == \
+            list(first.payload_index.records())
 bad = [m for m in sys.modules if m.split(".")[0] in _BLOCKED]
 assert not bad, bad
 print("ok")
@@ -339,9 +392,10 @@ print("ok")
 
 def test_tpxd_store_and_verification_run_without_jax_or_reference():
     """The native layout's tpxar entries need msgpack, which the import
-    gate blocks for the sidecar's sake: the pipelined tpxd write path and
-    the file-level verification run here with only jax and the
-    reference blocked."""
+    gate blocks for the sidecar's sake: the pipelined tpxd write path,
+    the file-level verification, a sync of the store and sessions cut by
+    the host chunker kinds run here with only jax and the reference
+    blocked."""
     r = subprocess.run([sys.executable, "-c", _STORE_GATE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
@@ -413,6 +467,15 @@ async def main():
     assert {e.path: rd.read_file(e) for e in rd.entries() if e.is_file} \
         == files
     assert rd.lookup("ln").link_target == "d/f0"
+    # the agent's source cross-check and self-update handlers over aRPC
+    from pbs_plus_tpu_torch.arpc import Session
+    sess = Session(agents.get("h").conn)
+    got = await sess.call("verify_start",
+                          {"path": os.path.join(src, "d/f1")}, timeout=60)
+    assert got.data["sha256"] == hashlib.sha256(files["d/f1"]).hexdigest()
+    got = await sess.call("update_now", {}, timeout=60)
+    assert got.data == {"updated": False,
+                        "message": "updates not configured"}
     await agent.stop()
     task.cancel()
     await asyncio.gather(task, return_exceptions=True)
@@ -429,9 +492,10 @@ print("ok")
 def test_backup_job_runs_without_jax_or_reference():
     """The port's agent backup job end to end (port agent, the aRPC
     envelopes over plain loopback, a dropped stream resumed from its
-    checkpoint, a tpxd LocalStore on the CPU) with only jax and the
-    reference blocked: the envelopes need msgpack, which the main gate
-    blocks."""
+    checkpoint, a tpxd LocalStore on the CPU, then the agent's
+    ``verify_start`` and ``update_now`` over the same session) with only
+    jax and the reference blocked: the envelopes need msgpack, which the
+    main gate blocks."""
     r = subprocess.run([sys.executable, "-c", _JOB_GATE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
@@ -492,6 +556,15 @@ async def main():
         schedule="02:00", chunker="cuda"))
     await server.scheduler.tick(dt.datetime(2026, 7, 29, 2, 0, 10))
     await server.job_queue.drain(timeout=60)
+    # a sync row pushing the server's store into a peer, fired by a tick
+    server.db.upsert_sync_job("s", direction="push",
+                              peer_path=os.path.join(tmp, "peer"),
+                              schedule="03:00")
+    await server.scheduler.tick(dt.datetime(2026, 7, 29, 3, 0, 10))
+    await server.job_queue.drain(timeout=60)
+    row = server.db.get_sync_job("s")
+    assert row["last_status"] == "success", row
+    assert '"snapshots_synced": 1' in row["last_report"], row
     with open(os.path.join(src, "f0"), "r+b") as f:
         f.write(b"changed")
     sock = os.path.join(tmp, "state", "job.sock")
@@ -525,8 +598,8 @@ print("ok")
 def test_server_shell_runs_without_jax_or_reference():
     """A port ``Server`` on the CPU with only jax and the reference
     blocked: one agent bootstrapped and connected over mTLS, a backup
-    fired by a scheduler tick and another over the job socket, prune
-    and GC, the metrics render, and stop."""
+    fired by a scheduler tick and another over the job socket, a sync row
+    fired by a tick, prune and GC, the metrics render, and stop."""
     r = subprocess.run([sys.executable, "-c", _SERVER_GATE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
@@ -647,6 +720,18 @@ async def main():
             await asyncio.sleep(0.1)
         assert not agent.jobs
         assert tree(dest) == tree(src)
+        # a sync row pushing the server's own store into a peer dir
+        await req("POST", "/api2/json/d2d/sync", {
+            "id": "s", "direction": "push",
+            "peer_path": os.path.join(tmp, "peer")})
+        assert (await req("POST", "/api2/json/d2d/sync/s/run"))["started"]
+        for _ in range(3000):
+            res = (await req("GET", "/api2/json/d2d/sync/s/results"))["data"]
+            if res["last_status"]:
+                break
+            await asyncio.sleep(0.1)
+        assert res["last_status"] == "success", res
+        assert res["report"]["snapshots_synced"] == 1, res
     await agent.stop()
     task.cancel()
     await asyncio.gather(task, return_exceptions=True)
@@ -661,7 +746,8 @@ print("ok")
 def test_web_backup_and_restore_run_without_jax_or_reference(tmp_path):
     """The port's web API over a ``Server(device="cpu")``: an agent
     enrolled over HTTP with ``job_isolation="subprocess"``, one backup
-    and one restore through the API, each run in an ``agent-job`` child;
+    and one restore through the API, each run in an ``agent-job`` child,
+    and a sync row stored, run and read back over the API;
     jax, jaxlib, grpc and the reference are blocked in this interpreter
     and, through ``sitecustomize``, in every child, and none of them
     tries to import one."""
@@ -700,7 +786,7 @@ def test_no_import_of_jax_or_reference_anywhere_in_the_port():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for dp, _dn, fn in os.walk(os.path.join(REPO, "pbs_plus_tpu_torch")):
         files += [os.path.join(dp, f) for f in fn if f.endswith(".py")]
-    assert len(files) >= 121
+    assert len(files) >= 127
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imports_of(f)
            if m.split(".")[0] in ("jax", "jaxlib", "pbs_plus_tpu")]

@@ -13,9 +13,11 @@ against the JAX package's on the same inputs, exactly:
   ``tenant_grants``, ``QueueFullError``s and breaker states;
 - (c) ``Scheduler.tick`` at fixed times over the same database rows
   enqueues the same ids (retries and the second-tick dedup included); a
-  port ``Server``'s due sync row raises after the tick's backups fired,
-  and a row whose chunker kind the port does not serve ends in error
-  without holding back the rest of its tick;
+  due sync row fires after the tick's backups and syncs as the JAX
+  server's does, a row of the JAX package's ``"tpu"`` kind ends in
+  error without holding back the rest of its tick (a ``"cpu"`` row, the
+  JAX default, runs), and ``chunker_backend`` picks a ``"cpu"`` server's
+  scan as the reference's does;
 - (d) one agent job (the agent bootstrapped through
   ``Server.bootstrap_agent`` and connected over mTLS) and one local job,
   fired by a scheduler tick and run by each package's whole ``Server``
@@ -39,6 +41,7 @@ hand; nothing waits on its 30 s loop.
 
 import asyncio
 import datetime as dt
+import io
 import json
 import os
 import shutil
@@ -54,6 +57,9 @@ import pytest
 from pbs_plus_tpu.agent import lifecycle as ref_lc
 from pbs_plus_tpu.agent import snapshots as ref_snaps
 from pbs_plus_tpu import arpc as ref_arpc
+from pbs_plus_tpu import chunker as ref_chunker
+from pbs_plus_tpu.pxar import backupproxy as ref_bp
+from pbs_plus_tpu.pxar.format import KIND_DIR, KIND_FILE, Entry
 from pbs_plus_tpu.server import database as ref_db
 from pbs_plus_tpu.server import jobrpc as ref_jobrpc
 from pbs_plus_tpu.server import jobs as ref_jobs
@@ -367,11 +373,23 @@ def _cfg(pkg, base, **kw):
 
 
 def test_due_sync_row_raises_after_the_ticks_backups(tmp_path):
-    """A port server has no sync job yet: its ``_enqueue_sync`` raises
-    ``NotImplementedError`` naming the module, after the tick's backups
-    and verifications were enqueued."""
-    async def main():
-        server = port_store.Server(_cfg(PORT, str(tmp_path)), device="cpu")
+    """A due sync row fires in the tick after the backups and
+    verifications, through the server's own ``_enqueue_sync``
+    (``server/sync_job.py``), in both packages alike: the same firing
+    order, and the sync run pulls the peer datastore's snapshot with the
+    same report (bar its seconds) and the same task row."""
+    peer = ref_bp.LocalStore(str(tmp_path / "peer"),
+                             ref_chunker.ChunkerParams(avg_size=1024))
+    sess = peer.start_session(backup_type="host", backup_id="p",
+                              backup_time=1_700_000_000)
+    sess.writer.write_entry(Entry(path="", kind=KIND_DIR))
+    sess.writer.write_entry_reader(Entry(path="f", kind=KIND_FILE),
+                                   io.BytesIO(b"sync me\n" * 900))
+    sess.finish()
+
+    async def main(pkg):
+        server = pkg.store.Server(_cfg(pkg, str(tmp_path / pkg.name)),
+                                  **pkg.server_kw)
         fired = []
 
         async def eb(row):
@@ -379,40 +397,60 @@ def test_due_sync_row_raises_after_the_ticks_backups(tmp_path):
 
         async def ev(v):
             fired.append(v["id"])
+        real_sync = server.scheduler.enqueue_sync
+
+        async def es(row):
+            fired.append(row["id"])
+            await real_sync(row)
         server.scheduler.enqueue_backup = eb
         server.scheduler.enqueue_verification = ev
-        server.db.upsert_backup_job(port_db.BackupJobRow(
+        server.scheduler.enqueue_sync = es
+        server.db.upsert_backup_job(pkg.db.BackupJobRow(
             id="b", target="t", source_path="/s", schedule="02:00"))
         server.db.upsert_verification_job("v", schedule="02:00")
-        server.db.upsert_sync_job("s", peer_path=str(tmp_path),
+        server.db.upsert_sync_job("s", peer_path=str(tmp_path / "peer"),
                                   schedule="02:00")
-        with pytest.raises(NotImplementedError, match="server/sync_job.py"):
-            await server.scheduler.tick(NOW)
+        await server.scheduler.tick(NOW)
+        await server.job_queue.drain(timeout=300)
+        row = server.db.get_sync_job("s")
+        report = json.loads(row["last_report"])
+        report.pop("wall_s")
+        tasks = [(t["job_id"], t["kind"], t["status"])
+                 for t in server.db.list_tasks()]
         server.db.close()
-        return fired
-    assert asyncio.run(main()) == ["b", "v"]
+        return fired, row["last_status"], report, tasks
+    got, want = asyncio.run(main(PORT)), asyncio.run(main(REF))
+    assert got == want
+    fired, status, report, tasks = got
+    assert fired == ["b", "v", "s"]
+    assert status == "success" and tasks == [("s", "sync", "success")]
+    assert report["snapshots_synced"] == 1 and report["chunks_transferred"] > 0
 
 
 def test_unserved_chunker_row_fails_alone_in_its_tick(tmp_path):
-    """A row at ``BackupJobRow``'s ``"cpu"`` default, which the port does
-    not serve, ticks before a ``"cuda"`` row and beside a due
-    verification: the ``"cuda"`` row and the verification fire in that
-    tick and succeed, the default row's run ends in error with its task
-    row finished, and no task row is left running."""
+    """A row naming the JAX package's ``"tpu"`` kind, which the port does
+    not serve, ticks before a ``"cuda"`` row, a row at ``BackupJobRow``'s
+    ``"cpu"`` default and a due verification: the ``"cuda"`` and
+    ``"cpu"`` rows and the verification fire in that tick and succeed,
+    the ``"tpu"`` row's run ends in error with its task row finished, and
+    no task row is left running."""
     src = make_tree(tmp_path / "src", 23)
 
     async def main():
         server = port_store.Server(_cfg(PORT, str(tmp_path)), device="cpu")
         server.db.upsert_target("loc", "local", root_path=src)
-        for jid, kw in (("a-default", {}), ("b-cuda", {"chunker": "cuda"})):
+        for jid, kw in (("a-tpu", {"chunker": "tpu"}),
+                        ("b-cuda", {"chunker": "cuda"}),
+                        ("c-default", {})):
             server.db.upsert_backup_job(port_db.BackupJobRow(
                 id=jid, target="loc", source_path="", backup_id=jid,
                 schedule="02:00", **kw))
         server.db.upsert_verification_job("v", schedule="02:00")
         await server.scheduler.tick(NOW)
-        fired = [j for j in ("backup:a-default", "backup:b-cuda",
-                             "verify:v") if server.jobs.is_active(j)]
-        await server.job_queue.drain(timeout=60)
+        fired = [j for j in ("backup:a-tpu", "backup:b-cuda",
+                             "backup:c-default", "verify:v")
+                 if server.jobs.is_active(j)]
+        await server.job_queue.drain(timeout=300)
         rows = {j.id: (j.last_status, j.last_error)
                 for j in server.db.list_backup_jobs()}
         tasks = sorted((t["job_id"], t["kind"], t["status"])
@@ -421,12 +459,13 @@ def test_unserved_chunker_row_fails_alone_in_its_tick(tmp_path):
         server.db.close()
         return fired, rows, tasks, verified
     fired, rows, tasks, verified = asyncio.run(main())
-    assert fired == ["backup:b-cuda", "verify:v"]
-    assert rows["b-cuda"] == ("success", "")
-    status, error = rows["a-default"]
-    assert status == "error" and "'cpu' is not served" in error
-    assert tasks == [("a-default", "backup", "error"),
+    assert fired == ["backup:b-cuda", "backup:c-default", "verify:v"]
+    assert rows["b-cuda"] == rows["c-default"] == ("success", "")
+    status, error = rows["a-tpu"]
+    assert status == "error" and "'tpu' is the JAX package's" in error
+    assert tasks == [("a-tpu", "backup", "error"),
                      ("b-cuda", "backup", "success"),
+                     ("c-default", "backup", "success"),
                      ("v", "verify", "success")]
     assert verified == "success"
 
@@ -435,12 +474,13 @@ def test_unserved_chunker_row_fails_alone_in_its_tick(tmp_path):
                                    "pbs_csrf_key_path",
                                    "pbs_auth_allowed_users"])
 def test_unported_config_field_raises_naming_its_module(tmp_path, field):
-    """A ``ServerConfig`` field that only an unported module reads is
-    refused when set, before the server touches its state directory.
-    The PBS ticket fields are read by the web API (``server/web.py``,
-    ``server/pbsauth.py``), which is ported: a server takes them, and its
-    app loads them as the reference's does (a missing key file leaves
-    ticket auth off)."""
+    """Every ``ServerConfig`` field of the reference is taken now.  The
+    PBS ticket fields are read by the web API (``server/web.py``,
+    ``server/pbsauth.py``), whose app loads them as the reference's does
+    (a missing key file leaves ticket auth off).  ``chunker_backend``
+    picks the scan of a server whose kind is ``"cpu"``, as the
+    reference's does: ``"vector"`` the self-tested vector factory,
+    anything else the scalar chunker (an unknown value with a warning)."""
     if field != "chunker_backend":
         server = port_store.Server(_cfg(PORT, str(tmp_path), **{field: "x"}),
                                    device="cpu")
@@ -448,10 +488,20 @@ def test_unported_config_field_raises_naming_its_module(tmp_path, field):
         from pbs_plus_tpu_torch.server.web import build_app
         assert build_app(server) is not None
         return
-    with pytest.raises(NotImplementedError, match=rf"ServerConfig\.{field}"):
-        port_store.Server(_cfg(PORT, str(tmp_path), **{field: "x"}),
-                          device="cpu")
-    assert os.listdir(tmp_path) == []
+    for value in ("vector", "scalar", "x"):
+        kinds = []
+        for pkg in (REF, PORT):
+            server = pkg.store.Server(_cfg(
+                pkg, str(tmp_path / f"{pkg.name}-{value}"), chunker="cpu",
+                chunker_backend=value), **pkg.server_kw)
+            factory = server.datastore._chunker_factory
+            chunker = factory(server.datastore.params)
+            kinds.append((type(factory).__name__, type(chunker).__name__,
+                          server.datastore.batch_hasher))
+            server.db.close()
+        assert kinds[0] == kinds[1]
+        assert kinds[1][1:] == ("VectorChunker" if value == "vector"
+                                else "CpuChunker", None)
 
 
 def test_server_without_device_raises_before_touching_disk(tmp_path):

@@ -17,8 +17,7 @@ read as placeholders, Unix times as ``<t>``, each server's directory as
 ``<base>``, and the job's chunker kind as ``<chunker>``.  Routes whose
 answer is the run's own (the debug dumps, the profile, the CA and key
 material in the install scripts and the release signature) compare
-their status, content type and shape.  The port serves no sync route:
-each answers 501 naming ``server/sync_job.py``.  ``/plus/metrics``
+their status, content type and shape.  ``/plus/metrics``
 compares under the rules of ``test_torch_server``'s render test, and the
 ``snapshot-zip`` bytes are identical (the tree's mtimes are pinned).
 
@@ -31,7 +30,8 @@ cpu --print-token`` and an ``agent`` process with its default
 ``subprocess`` job isolation: the agent enrols over HTTP, its control
 session registers, and a backup queued over HTTP runs in an
 ``agent-job`` child.  ``server --device cuda`` exits nonzero without a
-card, naming CUDA, and ``signer`` names the module it still needs.
+card, naming CUDA, and ``signer`` mints a key pair, signs and verifies
+an artifact as the JAX package's command does.
 """
 
 import asyncio
@@ -452,9 +452,6 @@ _SHAPE_ONLY = {"debug-tasks", "debug-stats", "debug-stacks", "traces",
                "profile",
                "profile-text", "profile-agent", "signer-pub", "version",
                "pyz", "metrics", "install-sh", "install-ps1", "drives"}
-# deliberate differences, checked one by one below
-_DIFFERENT = {"backup-add-cpu", "push-update", "sync-list", "sync-add",
-              "sync-delete", "sync-run", "sync-results"}
 # the job's chunker kind: the servers' defaults differ ("tpu" / "cuda")
 _CHUNKER = {"backup-add", "backup-list", "backup-export"}
 
@@ -484,8 +481,6 @@ def test_routes_answer_like_reference(webs):
     assert sorted(p) == sorted(r)
     differ = []
     for label in sorted(r):
-        if label in _DIFFERENT:
-            continue
         rs, rt, rv = r[label]
         ps, pt, pv = p[label]
         if label in _SHAPE_ONLY:
@@ -503,8 +498,9 @@ def test_routes_answer_like_reference(webs):
 
 def test_the_run_did_its_work(webs):
     """The normalised answers above are not vacuous: the backup, the
-    restore and the verification succeeded and the sync routes name the
-    missing module."""
+    restore and the verification succeeded, and the sync routes answered
+    as the JAX server's: a row stored, deleted, then unknown to run and
+    results."""
     p = webs["port"].norm
     assert p["task"][2]["data"]["status"] == "success"
     assert p["restore"][2]["data"]["status"] == "success"
@@ -515,12 +511,12 @@ def test_the_run_did_its_work(webs):
     assert p["snapshots"][2]["data"][0]["entries"] > 4
     assert p["notifications"][2]["data"]
     assert p["backup-list"][2]["data"][0]["last_status"] == "success"
-    for label in ("sync-list", "sync-add", "sync-delete", "sync-run",
-                  "sync-results"):
-        status, _, body = p[label]
-        assert status == 501 and "server/sync_job.py" in body["error"]
-    # the JAX server serves them
-    assert webs["ref"].norm["sync-list"][:2] == [200, "application/json"]
+    r = webs["ref"].norm
+    for label, status in (("sync-list", 200), ("sync-add", 200),
+                          ("sync-delete", 200), ("sync-run", 404),
+                          ("sync-results", 404)):
+        assert p[label] == r[label] and p[label][0] == status
+    assert p["sync-list"][2] == {"data": []}
 
 
 def _tree(root, *, exclude=()):
@@ -566,26 +562,24 @@ def test_snapshot_zip_bytes_match_reference(webs):
 
 def test_chunker_default_and_unserved_kind(webs):
     """The job row takes the server's chunker default; a body naming
-    ``cpu``, which a JAX server takes, is refused naming the modules that
-    would serve it."""
+    ``cpu``, the JAX default, is stored as the JAX server stores it."""
     r, p = webs["ref"].norm, webs["port"].norm
     assert p["backup-add"][2]["data"]["chunker"] == "cuda"
-    assert r["backup-add-cpu"][0] == 200
-    status, _, body = p["backup-add-cpu"]
-    assert status == 500 and "chunker/cpu.py" in body["error"]
+    assert p["backup-add-cpu"] == r["backup-add-cpu"]
+    assert p["backup-add-cpu"][0] == 200
+    assert p["backup-delete-cpu"] == r["backup-delete-cpu"]
 
 
 def test_push_update_answers_per_host(webs):
-    """Neither agent has self-update configured: the JAX agent answers
-    that updates are not configured, the port's that its updater is not
-    ported; both report the host as not updated."""
+    """Neither agent has self-update configured: both answer that updates
+    are not configured, and both report the host as not updated."""
     r, p = webs["ref"].norm["push-update"], webs["port"].norm["push-update"]
-    assert p[:2] == r[:2] == [200, "application/json"]
-    assert p[2]["success"] is r[2]["success"] is False
-    (rh,), (ph,) = r[2]["data"], p[2]["data"]
-    assert ph["hostname"] == rh["hostname"] == "h0"
-    assert ph["updated"] is rh["updated"] is False
-    assert "agent/updater.py" in ph["message"]
+    assert p == r
+    assert p[:2] == [200, "application/json"]
+    assert p[2]["success"] is False
+    (ph,) = p[2]["data"]
+    assert ph["hostname"] == "h0" and ph["updated"] is False
+    assert ph["message"] == "updates not configured"
 
 
 def test_agent_bundle_packs_the_port(webs):
@@ -647,13 +641,23 @@ def _lines_until(proc, pred, timeout):
     raise AssertionError(f"no such line: {lines}")
 
 
-def test_signer_command_names_its_missing_module():
-    """The reference's ``signer`` flags parse; the command exits nonzero
-    naming ``agent/updater.py``."""
+def test_signer_command_names_its_missing_module(tmp_path, capsys):
+    """The reference's ``signer`` flags run the reference's command: a key
+    pair, a signature the JAX package's ``verify_signature`` accepts, and
+    ``verify`` answering OK (exit 0)."""
+    from pbs_plus_tpu.agent.updater import verify_signature
     from pbs_plus_tpu_torch.__main__ import main
-    with pytest.raises(SystemExit, match="agent/updater.py") as e:
-        main(["signer", "keygen", "--key", "k.pem"])
-    assert e.value.code != 0
+    key, art = str(tmp_path / "k.pem"), tmp_path / "a.bin"
+    art.write_bytes(b"artifact" * 100)
+    assert main(["signer", "keygen", "--key", key]) == 0
+    assert main(["signer", "sign", "--key", key, "--file", str(art)]) == 0
+    sig = (tmp_path / "a.bin.sig").read_bytes()
+    assert verify_signature(art.read_bytes(), sig,
+                            open(f"{key}.pub", "rb").read())
+    capsys.readouterr()
+    assert main(["signer", "verify", "--key", f"{key}.pub",
+                 "--file", str(art)]) == 0
+    assert capsys.readouterr().out.strip() == "OK"
 
 
 def test_server_cuda_without_card_exits_naming_cuda(tmp_path):
