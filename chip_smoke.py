@@ -42,6 +42,21 @@ runs one phase per line:
               backend and the free disk; every file read back through
               SplitReader, every stored chunk re-hashed by hashlib, the
               verdicts held against the indexes
+   tape       tape ingestion: streams 0-1 cut into files as in the store
+              phase, under a few directory levels with one empty
+              directory, written as a 512 MiB MTF medium to local disk
+              (write_synthetic_mtf); ``python -m pbs_plus_tpu_torch
+              mtfprobe`` on it (-v: its dirs, files and bytes), on a copy
+              cut by 800 bytes (exit 0 strict and lenient: ESET's header
+              survives) and on one without its ESET block (exit 1
+              strict, 0 lenient); convert_mtf_to_snapshot into two fresh
+              LocalStores on the card (tpxd, pbs_format) twice: #1
+              launches K1, K2 and K3, #2 stores no new chunk; every file
+              read back through SplitReader, every tpxd entry's digest
+              and every stored chunk against hashlib; the medium without
+              ESET converts every file, ends in the ESET error and,
+              aborted, publishes nothing; MiB/s and seconds a conversion,
+              spool spill bytes, launches, new/known chunks
    verification the verification job (run_verification, sample rate 1.0)
               on each store: whole files through K2 (tpxd) or chunks in
               64 MiB batches (pbs), against hashlib's time and K2's bound;
@@ -230,6 +245,8 @@ VERIFY_SNAPSHOT_CHUNKS = 48   # chunks behind the snapshot reader
 INGEST_WINDOW = 32 << 20  # each stream's window in the fused-ingest batch
 STORE_FILE_MIN = 4 << 10  # the store phase's files: log-uniform sizes
 STORE_FILE_MAX = 64 << 20
+TAPE_STREAMS = 2          # the tape phase's medium: streams 0-1 as files
+TAPE_TRUNCATE = 800       # a copy cut by 800 bytes (inside ESET's padding)
 MOUNT_WRITES = 8          # the mount phase: 4 KiB writes into 8 files,
 MOUNT_WRITE_BYTES = 4 << 10
 MOUNT_NEW_FILES = 16      # 16 new files of log-uniform 4 KiB-16 MiB,
@@ -812,6 +829,208 @@ def store_phase(dev, P, streams: dict, seed: int, root: str) -> tuple[dict, dict
                                        streams=(streams, streams2),
                                        files=files)
     return out, stores
+
+
+def _probe(path: str, *flags: str) -> subprocess.Popen:
+    """``python -m pbs_plus_tpu_torch mtfprobe`` on ``path`` as a process."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "pbs_plus_tpu_torch", "mtfprobe", path,
+         *flags], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=ROOT))
+
+
+def _tape_store(dev, P, base: str, pbs: bool, media: str, files: dict,
+                dirs: set, spools: list) -> tuple[dict, object]:
+    """Conversions #1 and #2 of ``media`` into one port LocalStore on the
+    card, #1 read back: its line and the store."""
+    from pbs_plus_tpu_torch.ops import cuckoo, rolling_hash, sha256
+    from pbs_plus_tpu_torch.pxar.backupproxy import LocalStore
+    from pbs_plus_tpu_torch.pxar.transfer import SplitReader
+    from pbs_plus_tpu_torch.tapeio import converter
+
+    kind = "pbs" if pbs else "tpxd"
+    nbytes = sum(map(len, files.values()))
+    ls = LocalStore(base, P, pbs_format=pbs, device=dev)
+    ds = ls.datastore
+    runs = []
+    for b in range(2):
+        rolling_hash.KERNEL.launches = 0
+        sha256.KERNEL.launches = 0
+        cuckoo.stats["device_probes"] = 0
+        spools.clear()
+        sess = ls.start_session(backup_type="host", backup_id="tape",
+                                backup_time=1_700_000_000 + 3600 * b)
+        t0 = time.perf_counter()
+        with open(media, "rb") as f:
+            res = converter.convert_mtf_to_snapshot(f, sess)
+        man = sess.finish({"source_media": "LTO001"})
+        secs = time.perf_counter() - t0
+        launches = {"candidate_mask": rolling_hash.KERNEL.launches,
+                    "sha256_chunks": sha256.KERNEL.launches,
+                    "cuckoo_probe": cuckoo.stats["device_probes"]}
+        st = man["stats"]
+        check(res.files == len(files) and res.bytes == nbytes
+              and not res.errors,
+              f"tape {kind} #{b + 1}: {res.files} files, {res.bytes} bytes, "
+              f"errors {res.errors[:3]}")
+        if b == 0:
+            check(all(v > 0 for v in launches.values()),
+                  f"a kernel of the tape {kind} path did not launch: "
+                  f"{launches}")
+        else:
+            check(st["new_chunks"] == 0,
+                  f"tape {kind} #2 stored {st['new_chunks']} new chunks")
+        runs.append({"seconds": secs, "mib_s": nbytes / 2**20 / secs,
+                     "convert_s": res.seconds,
+                     "new_chunks": st["new_chunks"],
+                     "known_chunks": st["known_chunks"],
+                     "chunks": man["meta_chunks"] + man["payload_chunks"],
+                     "spools": len(spools),
+                     "spilled_bytes": sum(s.stats["spilled"] for s in spools),
+                     "launches": launches})
+    # #1 reads back; tpxd entries carry hashlib's digest (pbs ones, pxar
+    # v2, carry none), and every stored chunk hashes to its name
+    t0 = time.perf_counter()
+    rd = SplitReader.open_snapshot(ds, ds.list_snapshots("host", "tape")[0])
+    ents = {e.path: e for e in rd.entries()}
+    check(dirs <= {p for p, e in ents.items() if e.is_dir}
+          and set(files) == {p for p, e in ents.items() if e.is_file},
+          f"tape {kind}: entries")
+    for p, data in files.items():
+        e = ents[p]
+        check(rd.read_file(e) == data, f"tape {kind} {p} does not read back")
+        if not pbs:
+            check(e.digest == hashlib.sha256(data).digest(),
+                  f"tape {kind} {p}: digest != hashlib")
+    read_s = time.perf_counter() - t0
+    stored = list(ds.chunks.iter_digests())
+    with ThreadPoolExecutor(8) as pool:
+        ok = list(pool.map(
+            lambda d: hashlib.sha256(ds.chunks.get(d)).digest() == d, stored))
+    check(stored and all(ok), f"tape {kind}: stored chunks != hashlib")
+    return {"conversions": runs, "read_back_s": read_s,
+            "stored_chunks": len(stored),
+            "bytes_on_disk": dir_bytes(ds.base)}, ls
+
+
+def _tape_truncated(ls, media: str, n_files: int) -> dict:
+    """The medium without ESET into the store: every file converts, the
+    ESET error ends the list, and the aborted session publishes nothing."""
+    from pbs_plus_tpu_torch.tapeio import converter
+
+    ds = ls.datastore
+    before = ds.list_snapshots()
+    sess = ls.start_session(backup_type="host", backup_id="tape-trunc")
+    t0 = time.perf_counter()
+    with open(media, "rb") as f:
+        res = converter.convert_mtf_to_snapshot(f, sess)
+    sess.abort()
+    check(res.files == n_files and res.errors and "ESET" in res.errors[-1]
+          and ds.list_snapshots() == before,
+          f"tape without ESET: {res.files} files, errors {res.errors[-3:]}, "
+          f"snapshots {ds.list_snapshots()}")
+    return {"seconds": time.perf_counter() - t0, "files": res.files,
+            "errors": res.errors, "published": False}
+
+
+def tape_phase(dev, P, streams: dict, seed: int, root: str) -> dict:
+    """Tape ingestion on the card: streams 0-1 cut into files (as in the
+    store phase) under a few directory levels with one empty directory,
+    written as one MTF medium to local disk by ``write_synthetic_mtf``;
+    ``mtfprobe`` (the port's command) on it, on a copy cut by 800 bytes
+    and on one without its ESET block, strict and lenient; the medium
+    converted twice into each of two port ``LocalStore(device=dev)`` at
+    the production defaults (tpxd and pbs_format); #1 launches K1, K2 and
+    K3, #2 stores no new chunk; every file read back through SplitReader,
+    every tpxd entry's digest and every stored chunk against hashlib;
+    the medium without ESET converts every file, ends in the ESET error
+    and, aborted, publishes nothing."""
+    from pbs_plus_tpu_torch.tapeio import converter, write_synthetic_mtf
+
+    t_phase = time.perf_counter()
+    tree = {"tape/empty": None}
+    for k, n in enumerate(sorted(streams)[:TAPE_STREAMS]):
+        a = streams[n]
+        for i, (s, e) in enumerate(store_files(STREAM_BYTES, seed + 100 + k)):
+            tree[f"tape/s{k}/d{i % 4}/e{i % 3}/f{i:05d}"] = a[s:e].tobytes()
+    files = {p: v for p, v in tree.items() if v is not None}
+    dirs = {p for p, v in tree.items() if v is None}
+    for p in files:
+        parts = p.split("/")[:-1]
+        dirs.update("/".join(parts[:i]) for i in range(1, len(parts) + 1))
+    nbytes = sum(map(len, files.values()))
+    media = os.path.join(root, "media.bkf")
+    t0 = time.perf_counter()
+    with open(media, "wb") as f:
+        write_synthetic_mtf(f, tree, media_name="LTO001")
+    del tree
+    out = {"phase": "tape", "files": len(files), "dirs": len(dirs),
+           "bytes": nbytes, "media_bytes": os.path.getsize(media),
+           "largest_file": max(map(len, files.values())),
+           "media_write_s": time.perf_counter() - t0, "stores": {}}
+    cut, no_eset = media + ".cut800", media + ".noeset"
+    for path, k in ((cut, TAPE_TRUNCATE), (no_eset, 1024)):
+        shutil.copyfile(media, path)
+        os.truncate(path, out["media_bytes"] - k)
+    # the probes run beside the conversions, as processes of their own
+    probes = {"intact_v": _probe(media, "-v"), "cut800": _probe(cut),
+              "cut800_lenient": _probe(cut, "--lenient"),
+              "no_eset": _probe(no_eset),
+              "no_eset_lenient": _probe(no_eset, "--lenient")}
+    spools, plain_spool = [], converter.Spool
+
+    class CountingSpool(plain_spool):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            spools.append(self)
+
+    converter.Spool = CountingSpool
+    try:
+        for pbs in (False, True):
+            kind = "pbs" if pbs else "tpxd"
+            out["stores"][kind], ls = _tape_store(
+                dev, P, os.path.join(root, kind), pbs, media, files, dirs,
+                spools)
+            if not pbs:
+                out["no_eset"] = _tape_truncated(ls, no_eset, len(files))
+            del ls
+        res = {}
+        for k, p in probes.items():
+            so, se = p.communicate(timeout=300)
+            res[k] = (p.returncode, so, se)
+    finally:
+        converter.Spool = plain_spool
+        for p in probes.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    # mtfprobe: the intact medium's dirs, files and bytes; the copy cut by
+    # 800 bytes keeps ESET's header, so the reader ends the set there and
+    # exits 0 even strict (as the JAX package's does); without ESET, strict
+    # exits 1 and lenient 0
+    summary = f"{len(dirs)} dirs, {len(files)} files, {nbytes} content bytes"
+    rc, so, se = res["intact_v"]
+    lines = so.splitlines()
+    check(rc == 0 and lines[-1:] == [f"{media}: {summary}"]
+          and len(lines) == len(dirs) + len(files) + 1,
+          f"mtfprobe -v: rc {rc}, {lines[-1:]} {se[-2000:]}")
+    for k, path, want in (("cut800", cut, 0), ("cut800_lenient", cut, 0),
+                          ("no_eset", no_eset, 1),
+                          ("no_eset_lenient", no_eset, 0)):
+        rc, so, se = res[k]
+        line = ("MTF error: media ended without ESET (truncated tape?)"
+                if want else f"{path}: {summary}")
+        check(rc == want and so == line + "\n",
+              f"mtfprobe {k}: rc {rc}, {so[-300:]!r} {se[-2000:]}")
+    out["mtfprobe"] = {k: {"rc": v[0], "last_line": v[1].splitlines()[-1]}
+                       for k, v in res.items()}
+    out["launches"] = {k: sum(r["launches"][k]
+                              for st in out["stores"].values()
+                              for r in st["conversions"])
+                       for k in ("candidate_mask", "sha256_chunks",
+                                 "cuckoo_probe")}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def k2_chain_ms(length: int, clock_hz: float) -> float:
@@ -4014,6 +4233,13 @@ def main() -> int:
     try:
         store_line, stores = store_phase(dev, P, streams, args.seed, store_root)
         emit(store_line)
+        # tape ingestion: an MTF medium of streams 0-1 into two fresh stores
+        tape_root = tempfile.mkdtemp(prefix="tape-", dir=SCRATCH)
+        try:
+            tape_line = tape_phase(dev, P, streams, args.seed, tape_root)
+            emit(tape_line)
+        finally:
+            shutil.rmtree(tape_root, ignore_errors=True)
         ver_line = verification_phase(dev, stores, clock_hz)
         emit(ver_line)
         sync_line = sync_phase(dev, stores, store_root)
@@ -4510,6 +4736,7 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": k3_ms,
          "fused_ingest_launches": fused["launches"]["cuckoo_probe"],
          "store_launches": store_launches["cuckoo_probe"],
+         "tape_launches": tape_line["launches"]["cuckoo_probe"],
          "mount_launches": mount_line["launches"]["cuckoo_probe"],
          "backup_job_launches": job_line["launches"]["cuckoo_probe"],
          "server_launches": server_line["launches"]["cuckoo_probe"],
@@ -4598,6 +4825,7 @@ def main() -> int:
              "fan_in": par_nums["fan_in"]["k1"],
              "fused_ingest": fused["launches"]["candidate_mask"],
              "store": store_launches["candidate_mask"],
+             "tape": tape_line["launches"]["candidate_mask"],
              "mount": mount_line["launches"]["candidate_mask"],
              "backup_job": job_line["launches"]["candidate_mask"],
              "server": server_line["launches"]["candidate_mask"],
@@ -4617,6 +4845,7 @@ def main() -> int:
              "fan_in": par_nums["fan_in"]["k2"],
              "fused_ingest": fused["launches"]["sha256_chunks"],
              "store": store_launches["sha256_chunks"],
+             "tape": tape_line["launches"]["sha256_chunks"],
              "verification": ver_launches,
              "mount": mount_line["launches"]["sha256_chunks"],
              "backup_job": job_line["launches"]["sha256_chunks"],

@@ -66,6 +66,15 @@ kernel's plain PyTorch version.
   membership batches probed by the destination's index (K3 on the card).
   The agent's registry and self-update (``agent/{registry,updater}.py``)
   and ``python -m pbs_plus_tpu_torch signer``.
+- tapeio: MTF/BKF media into a store session (``convert_mtf_to_snapshot``
+  on the store's device: K1, K2, K3), the spool, the cartridge inventory,
+  LTO drives and the media changer; ``python -m pbs_plus_tpu_torch
+  mtfprobe``.  agent.win: the Windows agent seams (ACLs and security
+  descriptors, registry, drives, VSS, the NT service, restore metadata).
+  operator: the Kubernetes operator (``python -m
+  pbs_plus_tpu_torch.operator``).  proxmox: PBS task logs and the
+  management API client.  utils: lockwatch, memlimit, safemap.  Copies of
+  the JAX package's.
 - convert: index and chunker state carried across from the JAX package.
 """
 

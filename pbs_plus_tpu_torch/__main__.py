@@ -1,6 +1,7 @@
 """Command line of the port: ``python -m pbs_plus_tpu_torch server``,
 ``agent``, ``agent-job``, ``sidecar``, ``index-shard``,
-``dryrun-multichip``, ``mount``, ``commit`` and ``job``.
+``dryrun-multichip``, ``mount``, ``commit``, ``job``, ``signer`` and
+``mtfprobe``.
 
     python -m pbs_plus_tpu_torch server --datastore /srv/ds \
         --state-dir /srv/state --cert-dir /srv/certs --print-token \
@@ -90,6 +91,15 @@ agent artifact (``<file>.sig``; Ed25519 or ECDSA P-256 keys) and checks
 a signature as the agent's updater does (``agent/updater.py``), exiting
 1 on a bad one.  Keys and signatures are the JAX package's bytes: either
 package's ``signer`` verifies what the other signed.
+
+    python -m pbs_plus_tpu_torch mtfprobe -v media.bkf
+
+walks MTF/BKF media (``tapeio/mtf.py``) and prints its directories,
+files and content bytes (``-v`` lists each entry); media that end
+without an ESET block exit 1 unless ``--lenient``.  Output and exit
+codes are the JAX package's ``mtfprobe``'s.  A medium goes into a store
+with ``tapeio.convert_mtf_to_snapshot`` over a ``LocalStore`` or
+``PBSStore`` session, on the store's device.
 """
 
 from __future__ import annotations
@@ -449,7 +459,33 @@ def _cmd_job(args: argparse.Namespace) -> int:
     return 0 if resp.get("ok") else 1
 
 
-def main(argv: list[str] | None = None) -> int:
+def _cmd_mtfprobe(args: argparse.Namespace) -> int:
+    """Tape/BKF diagnostics (reference: cmd/mtfprobe/main.go:13-40)."""
+    from .tapeio.mtf import MTFError, MTFReader
+    with open(args.file, "rb") as f:
+        rdr = MTFReader(f, strict=not args.lenient)
+        n_files = n_dirs = total = 0
+        try:
+            for e in rdr.entries():
+                if args.verbose:
+                    print(f"{e.kind:4s} {e.path}"
+                          + (f"  ({e.size} bytes)" if e.kind == "file"
+                             else ""))
+                if e.kind == "file":
+                    n_files += 1
+                    total += e.size
+                else:
+                    n_dirs += 1
+        except MTFError as e:
+            print(f"MTF error: {e}")
+            return 1
+    print(f"{args.file}: {n_dirs} dirs, {n_files} files, "
+          f"{total} content bytes")
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """Every command's parser (the operator's pod ``args`` parse here)."""
     ap = argparse.ArgumentParser(prog="python -m pbs_plus_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     s = sub.add_parser("server", help="run the backup server daemon")
@@ -572,7 +608,17 @@ def main(argv: list[str] | None = None) -> int:
     sg.add_argument("--file", default="", help="artifact to sign/verify")
     sg.add_argument("--sig", default="", help="signature path (verify)")
     sg.set_defaults(fn=_cmd_signer)
-    args = ap.parse_args(argv)
+    mp = sub.add_parser("mtfprobe", help="MTF/BKF media diagnostics")
+    mp.add_argument("file")
+    mp.add_argument("-v", "--verbose", action="store_true")
+    mp.add_argument("--lenient", action="store_true",
+                    help="tolerate truncation (salvage mode)")
+    mp.set_defaults(fn=_cmd_mtfprobe)
+    return ap
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
     return args.fn(args)
 
 

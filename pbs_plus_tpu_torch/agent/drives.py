@@ -4,9 +4,8 @@ Reference: internal/agent drive updates (cmd/agent/main_unix.go:118-148 —
 periodic POST of the drive list to the server) and drives_windows.go.
 Linux: parse lsblk JSON (gated) with a /proc/mounts fallback.
 
-A copy of the JAX package's ``agent/drives.py``, its code byte for byte
-apart from Windows: the JAX package's ``agent/win/`` is not ported, so
-on Windows ``enumerate_drives`` raises ``NotImplementedError``.
+A copy of the JAX package's ``agent/drives.py``, its code byte for byte;
+on Windows it enumerates through the port's ``agent/win/drives.py``.
 """
 
 from __future__ import annotations
@@ -19,10 +18,12 @@ import subprocess
 
 def enumerate_drives() -> list[dict]:
     """[{name, mountpoint, fstype, size_bytes, free_bytes}] for real
-    filesystems (tmpfs/proc/etc. filtered)."""
+    filesystems (tmpfs/proc/etc. filtered).  Platform-dispatched: on
+    Windows the CIM enumeration (agent/win/drives.py) serves the same
+    shape."""
     if os.name == "nt":
-        raise NotImplementedError(
-            "Windows drive enumeration (agent/win/drives.py) is not ported")
+        from .win.drives import enumerate_drives_windows
+        return enumerate_drives_windows()
     out: list[dict] = []
     if shutil.which("lsblk"):
         try:

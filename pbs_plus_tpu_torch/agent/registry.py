@@ -9,10 +9,9 @@ Secret values are stored sealed and transparently unsealed on read;
 ``seed_from_env`` imports PBS_PLUS_INIT_* variables once.
 
 A copy of the JAX package's ``agent/registry.py``, its code byte for
-byte apart from its imports, which name the port's own modules, and
-Windows: the JAX package's ``agent/win/`` is not ported, so on Windows
-``open_registry`` raises ``NotImplementedError`` naming
-``agent/win/registry.py`` (as ``agent/drives.py`` does for drives).
+byte apart from its imports, which name the port's own modules; on
+Windows ``open_registry`` returns the port's ``agent/win/registry.py``
+``WinRegistry``.
 """
 
 from __future__ import annotations
@@ -37,8 +36,8 @@ def open_registry(path: str, *, key_path: str | None = None):
     (agent/win/registry.WinRegistry) — one surface either way
     (reference: registry_unix.go / registry_windows.go split)."""
     if os.name == "nt":
-        raise NotImplementedError(
-            "the Windows registry (agent/win/registry.py) is not ported")
+        from .win.registry import WinRegistry
+        return WinRegistry()
     return Registry(path, key_path=key_path)
 
 

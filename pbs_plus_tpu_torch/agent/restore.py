@@ -7,12 +7,10 @@ xattrs), hardlink.go.  The pull loop is DFS over pxar.read_dir with ranged
 raw-stream reads (SURVEY §3.3 hot loop).
 
 A copy of the JAX package's ``agent/restore.py``, its code byte for
-byte apart from its logger (``logging``) and the Windows branch: the
-metadata applier (``agent/win/``) is not in the port, so on ``os.name ==
-"nt"`` a ``RestoreEngine`` built without ``win_meta`` raises
-``NotImplementedError`` naming it.  Every restored file is checked
-with ``hashlib`` against its entry's SHA-256 (``Entry.digest``, written
-by the backup's K2 on the card).
+byte apart from its logger (``logging``); on ``os.name == "nt"`` the
+metadata applier is the port's own ``agent/win/restore.py``.  Every
+restored file is checked with ``hashlib`` against its entry's SHA-256
+(``Entry.digest``, written by the backup's K2 on the card).
 """
 
 from __future__ import annotations
@@ -59,9 +57,8 @@ class RestoreEngine:
         # Windows metadata applier (restore_windows.go analog): active on
         # win32, injectable everywhere for the seam tests
         if win_meta is None and os.name == "nt":  # pragma: no cover
-            raise NotImplementedError(
-                "Windows restore: the metadata applier (agent/win/) is "
-                "not in pbs_plus_tpu_torch yet")
+            from .win.restore import WinMetaApplier
+            win_meta = WinMetaApplier()
         self.win_meta = win_meta
         self.result = RestoreResult()
         self._hardlinks: list[tuple[str, str]] = []

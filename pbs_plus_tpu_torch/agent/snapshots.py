@@ -9,9 +9,8 @@ the reference's unix set with availability gates (tool presence checked at
 runtime) and Direct as the universal fallback.
 
 A copy of the JAX package's ``agent/snapshots.py``, its code byte for
-byte apart from its logger (``logging``) and Windows: the JAX package's
-``agent/win/`` is not ported, so a manager built on Windows without
-``handlers=`` raises ``NotImplementedError``.
+byte apart from its logger (``logging``); on Windows a manager built
+without ``handlers=`` takes the port's ``agent/win/vss.py`` handler.
 """
 
 from __future__ import annotations
@@ -274,8 +273,8 @@ class SnapshotManager:
         if handlers is not None:
             self.handlers = handlers
         elif os.name == "nt":
-            raise NotImplementedError(
-                "Windows VSS snapshots (agent/win/vss.py) are not ported")
+            from .win.vss import VssHandler
+            self.handlers = [VssHandler()]
         else:
             self.handlers = [
                 BtrfsHandler(), ZfsHandler(),

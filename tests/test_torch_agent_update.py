@@ -3,7 +3,8 @@ package's, and the agent's ``verify_start`` over aRPC.
 
 - ``agent/registry.py``: the same operations give the same answers, a
   registry file written by either package reads back in the other, and
-  ``open_registry`` on Windows names the unported ``agent/win/``.
+  ``open_registry`` on Windows returns each package's own
+  ``agent/win/registry.WinRegistry``.
 - ``signer``: keys made and artifacts signed by either package's command
   verify under the other's ``signer verify`` and ``verify_signature``,
   Ed25519 and ECDSA P-256 alike; a bad signature fails in both.
@@ -115,9 +116,22 @@ def test_registry_file_reads_back_across_packages(tmp_path, writer, reader):
 
 def test_open_registry_on_windows_names_the_unported_module(monkeypatch,
                                                             tmp_path):
-    monkeypatch.setattr(port_reg.os, "name", "nt")
-    with pytest.raises(NotImplementedError, match="agent/win/registry.py"):
-        port_reg.open_registry(str(tmp_path / "r.json"))
+    """Since the port has ``agent/win/``, ``open_registry`` on Windows
+    returns its own ``WinRegistry``, as the reference returns its own
+    (winreg stubbed: this host has none)."""
+    from pbs_plus_tpu.agent.win import registry as ref_win
+    from pbs_plus_tpu_torch.agent.win import registry as port_win
+    got = {}
+    for mod, win in ((port_reg, port_win), (ref_reg, ref_win)):
+        monkeypatch.setattr(win, "_real_winreg", lambda: "winreg")
+        with monkeypatch.context() as m:
+            m.setattr(mod.os, "name", "nt")
+            r = mod.open_registry(str(tmp_path / "r.json"))
+        assert type(r) is win.WinRegistry and r._reg == "winreg"
+        got[mod] = (type(r).__module__, r._path)
+    assert got[port_reg] == (
+        "pbs_plus_tpu_torch.agent.win.registry", got[ref_reg][1])
+    assert got[ref_reg][0] == "pbs_plus_tpu.agent.win.registry"
 
 
 # -- signer ----------------------------------------------------------------------

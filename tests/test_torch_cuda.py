@@ -1019,3 +1019,54 @@ def test_cpu_and_sidecar_kinds_on_card(cuda, tmp_path):
     assert out["cpu"][1] == [0, 0, 0]
     assert out["sidecar"][1][0] > 0 and out["sidecar"][1][1] > 0
     assert all(out["cuda"][1])
+
+
+@pytest.mark.parametrize("pbs", [False, True], ids=["tpxd", "pbs"])
+def test_tape_conversion_on_card_equals_cpu(cuda, tmp_path, monkeypatch, pbs):
+    """An MTF medium converted into a LocalStore on the card (K1 cuts, K2
+    digests, K3 probes) and into one on the CPU: chunk and index files
+    byte for byte equal (the index header's uuid and time pinned), equal
+    results, and the three kernels launched on the card."""
+    import io
+    import os
+    import time
+
+    from pbs_plus_tpu_torch.pxar.backupproxy import LocalStore
+    from pbs_plus_tpu_torch.tapeio import (convert_mtf_to_snapshot,
+                                           write_synthetic_mtf)
+    monkeypatch.setattr(os, "urandom", lambda n: b"\x5a" * n)
+    monkeypatch.setattr(time, "time_ns", lambda: 1_700_000_000 * 10**9)
+    tree = {"vol/empty": None}
+    for i in range(6):
+        tree[f"vol/d{i % 2}/f{i}"] = _bytes(1000 + 170_000 * i, 40 + i).tobytes()
+    buf = io.BytesIO()
+    write_synthetic_mtf(buf, tree)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        ls = LocalStore(str(tmp_path / dev), TEST_PARAMS, pbs_format=pbs,
+                        dedup_index_mb=1, device=dev)
+        before = (rolling_hash.KERNEL.launches, sha256.KERNEL.launches,
+                  cuckoo.stats["device_probes"])
+        sess = ls.start_session(backup_type="host", backup_id="tape",
+                                backup_time=1_700_000_000)
+        buf.seek(0)
+        res = convert_mtf_to_snapshot(buf, sess, spool_cap=256 << 10)
+        man = sess.finish()
+        after = (rolling_hash.KERNEL.launches, sha256.KERNEL.launches,
+                 cuckoo.stats["device_probes"])
+        if dev == "cuda":
+            assert all(a > b for a, b in zip(after, before))
+        files = {}
+        for dp, _dn, fn in os.walk(ls.datastore.base):
+            for f in fn:
+                p = os.path.join(dp, f)
+                rel = os.path.relpath(p, ls.datastore.base)
+                if rel.startswith(".chunks") or rel.endswith(
+                        ("idx", ".didx")):
+                    files[rel] = open(p, "rb").read()
+        man.pop("created_unix")
+        r = vars(res)
+        r.pop("seconds")
+        got[dev] = (files, man["stats"], r)
+    assert got["cpu"] == got["cuda"]
+    assert got["cuda"][2]["files"] == 6 and not got["cuda"][2]["errors"]
