@@ -57,6 +57,30 @@ runs one phase per line:
               ESET converts every file, ends in the ESET error and,
               aborted, publishes nothing; MiB/s and seconds a conversion,
               spool spill bytes, launches, new/known chunks
+   fleet      the fleet on the card: run_fleet(..., device="cuda") with
+              tests/fleet/test_fleet_soak.py's N=500 mixed composition
+              (2 backup waves, churn, 50 restores, 50 verifies, 4 syncs,
+              5 hostile agents of all five profiles, weighted tenants,
+              50 readserve readers) over trees of 2 files of 1 MiB at
+              4 MiB average chunks, held to that test's assertions:
+              once with a K2 flush a session, once with
+              PBS_PLUS_FUSED_INGEST=1 (the fused collector); both runs'
+              snapshots equal chunk for chunk, and the first 16 agents'
+              equal a 16-agent run_fleet's on the CPU (plain K1,
+              hashlib); and run_multiproc_fleet: two ``python -m
+              pbs_plus_tpu_torch.server.fleetproc --device cuda`` workers
+              on the card over one datastore and one SQLite database (32
+              agents each, test_multiproc.py's composition), the GC
+              leader SIGKILLed mid-sweep and its lease stolen, held to
+              that test's assertions; wall seconds, published MiB/s,
+              enqueue->publish p50/p99 (marked at the 10 s top bucket),
+              K1/K2/K3 launches (a published MiB), fused flushes by
+              trigger, peak device memory, each worker's launches and
+              the GC outcomes.  The four runs are interpreters of their
+              own (``--fleet-child``), started together: the phase's
+              wall is its longest run's, and no later phase sees the
+              fleet's process-wide registries.  ``--fleet-only N`` runs
+              the build and this phase alone, N times
    verification the verification job (run_verification, sample rate 1.0)
               on each store: whole files through K2 (tpxd) or chunks in
               64 MiB batches (pbs), against hashlib's time and K2's bound;
@@ -339,7 +363,14 @@ def check(cond, what: str) -> None:
         raise CheckFailed(what)
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One line of output; a phase's line carries the script's seconds so
+    far (``elapsed_s``), so that each phase's time is the difference."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -1031,6 +1062,483 @@ def tape_phase(dev, P, streams: dict, seed: int, root: str) -> dict:
                                  "cuckoo_probe")}
     out["phase_s"] = time.perf_counter() - t_phase
     return out
+
+
+# the fleet phase: tests/fleet/test_fleet_soak.py's _mixed_cfg(500) and
+# tests/fleet/test_multiproc.py's composition at the production chunk size
+FLEET_AGENTS = 500
+FLEET_FILES = 2                # a host's tree: 2 files of 1 MiB
+FLEET_FILE_BYTES = 1 << 20
+FLEET_CHUNK_AVG = 4 << 20      # the production chunking (1-16 MiB)
+FLEET_SAMPLE = 16              # agents held against a LocalStore on the CPU
+FLEET_MP_AGENTS = 32           # agents a fleetproc worker
+FLEET_PROFILES = "flood,slow_reader,reconnect_storm,length_liar,slowloris"
+
+
+def fleet_config(FleetConfig):
+    """``_mixed_cfg(FLEET_AGENTS)`` of ``tests/fleet/test_fleet_soak.py``
+    (lines 164-190), with the bytes of a host at the production chunk
+    size."""
+    n = FLEET_AGENTS
+    return FleetConfig(
+        n_agents=n, tenants=8, max_concurrent=8, max_queued=4 * n,
+        jobs_per_agent=2, churn_fraction=0.1,
+        restore_jobs=max(4, n // 10), verify_jobs=max(4, n // 10),
+        sync_jobs=4, hostile_agents=5, hostile_profiles=FLEET_PROFILES,
+        reservation_ttl_s=1.0, mux_write_deadline_s=2.0,
+        tenant_weights="tenant-0=3,tenant-1=2",
+        readserve_readers=max(4, n // 10), readserve_reads=6,
+        files_per_agent=FLEET_FILES, file_size=FLEET_FILE_BYTES,
+        chunk_avg=FLEET_CHUNK_AVG)
+
+
+def mixed_assertions(cfg, rep, d: dict, what: str) -> None:
+    """``_mixed_assertions`` of ``tests/fleet/test_fleet_soak.py`` (lines
+    193-246) as checks."""
+    check(d["published"] == cfg.n_agents * cfg.jobs_per_agent
+          and not rep.failures,
+          f"{what}: published {d['published']}, failures "
+          f"{dict(list(rep.failures.items())[:5])}")
+    check(d["restore_completed"] == cfg.restore_jobs
+          and d["restore_failed"] == 0, f"{what}: restores "
+          f"{d['restore_completed']}, {dict(list(rep.restore_failures.items())[:3])}")
+    check(d["verify_completed"] == cfg.verify_jobs
+          and d["verify_failed"] == 0, f"{what}: verifies "
+          f"{d['verify_completed']}, {dict(list(rep.verify_failures.items())[:3])}")
+    check(d["sync_completed"] >= cfg.sync_jobs and d["sync_failed"] == 0,
+          f"{what}: syncs {d['sync_completed']}, {rep.sync_failures}")
+    check(d["churned"] >= 1, f"{what}: no churn")
+    check(d["readserve_completed"] == cfg.readserve_readers
+          and d["readserve_failed"] == 0
+          and d["readserve_reads"] == cfg.readserve_readers
+          * cfg.readserve_reads and d["readserve_bytes"] > 0
+          and d["readserve_cache"].get("hits", 0) > 0,
+          f"{what}: readserve {d['readserve_completed']} "
+          f"{d['readserve_reads']} {d['readserve_cache']} "
+          f"{dict(list(rep.readserve_failures.items())[:3])}")
+    check(d["hostile_run"] == cfg.hostile_agents
+          and d["server_flow_violations"] >= 1
+          and d["server_write_deadline_sheds"] >= 1
+          and d["server_stream_length_violations"] >= 1
+          and d["hostile_liar_errors"] >= 1
+          and d["hostile_liar_published"] == 0 and d["evictions"] >= 1
+          and d["reservations_reaped"] >= cfg.hostile_slowloris_rounds,
+          f"{what}: hostiles {d['hostile_run']}, flow "
+          f"{d['server_flow_violations']}, sheds "
+          f"{d['server_write_deadline_sheds']}, length "
+          f"{d['server_stream_length_violations']}, liar "
+          f"{d['hostile_liar_errors']}/{d['hostile_liar_published']}, "
+          f"evictions {d['evictions']}, reaped {d['reservations_reaped']}")
+    check(all(rep.tenant_grants.get(f"tenant-{t}", 0) > 0
+              for t in range(cfg.tenants)),
+          f"{what}: a tenant starved: {rep.tenant_grants}")
+    check(0 < d["enqueue_to_publish_p50_s"] <= d["enqueue_to_publish_p99_s"],
+          f"{what}: enqueue->publish p50/p99 {d['enqueue_to_publish_p50_s']}"
+          f"/{d['enqueue_to_publish_p99_s']}")
+    check(not d["bound_violated"] and d["queued_max"] <= cfg.max_queued,
+          f"{what}: queue bound {d['queued_max']} > {cfg.max_queued}")
+
+
+def fair_shares(order: list, jobs_per_tenant: int, weights: dict) -> bool:
+    """``_fair_shares`` of ``tests/fleet/test_multiproc.py``: +-10% over
+    the all-backlogged prefix of the contended grant order."""
+    left = {t: jobs_per_tenant for t in weights}
+    prefix = []
+    for t in order:
+        prefix.append(t)
+        left[t] -= 1
+        if left[t] == 0:
+            break
+    total_w = sum(weights.values())
+    return all(abs(prefix.count(t) - len(prefix) * w / total_w)
+               <= 0.1 * len(prefix) * w / total_w + 1
+               for t, w in weights.items())
+
+
+def snapshot_digests(ds) -> dict:
+    """"<backup_id>#<n-th snapshot of its group>" -> each index's
+    [[end, digest hex]] (JSON as it is)."""
+    out, seen = {}, {}
+    for ref in sorted(ds.list_snapshots(), key=lambda r: (r.backup_id,
+                                                           r.backup_time)):
+        k = seen[ref.backup_id] = seen.get(ref.backup_id, -1) + 1
+        out[f"{ref.backup_id}#{k}"] = [
+            [[int(ix.ends[i]), bytes(ix.digests[i]).hex()]
+             for i in range(len(ix.ends))] for ix in ds.load_indexes(ref)]
+    return out
+
+
+def _fleet_run(dev, cfg, root: str, fused: bool) -> tuple[dict, dict]:
+    """One ``run_fleet(..., device=dev)`` (``PBS_PLUS_FUSED_INGEST`` as
+    ``fused`` says), held to the soak's own assertions: its line and the
+    chunk digests of its snapshots."""
+    from pbs_plus_tpu_torch.ops import cuckoo, rolling_hash, sha256
+    from pbs_plus_tpu_torch.pxar import ingestbatch
+    from pbs_plus_tpu_torch.pxar.datastore import Datastore
+    from pbs_plus_tpu_torch.server import fleetsim, metrics
+    from pbs_plus_tpu_torch.utils import conf
+
+    what = f"fleet survival ({'fused' if fused else 'sessions'})"
+    if fused:
+        os.environ["PBS_PLUS_FUSED_INGEST"] = "1"
+    else:
+        os.environ.pop("PBS_PLUS_FUSED_INGEST", None)
+    for knob in ("PBS_PLUS_INGEST_BATCH_BYTES", "PBS_PLUS_INGEST_MAX_WAIT_MS"):
+        os.environ.pop(knob, None)
+    conf.env.cache_clear()
+    ds_dir = os.path.join(root, "ds")
+    m0 = ingestbatch.metrics_snapshot()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    rolling_hash.KERNEL.launches = 0
+    sha256.KERNEL.launches = 0
+    cuckoo.stats["device_probes"] = 0
+    t0 = time.perf_counter()
+    rep = fleetsim.run_fleet(ds_dir, cfg, device=dev)
+    wall = time.perf_counter() - t0
+    print(f"{what}: run_fleet returned in {wall:.1f} s", file=sys.stderr,
+          flush=True)
+    launches = {"candidate_mask": rolling_hash.KERNEL.launches,
+                "sha256_chunks": sha256.KERNEL.launches,
+                "cuckoo_probe": cuckoo.stats["device_probes"]}
+    d = rep.to_dict()
+    mixed_assertions(cfg, rep, d, what)
+    # the wrappers launch on the card (on the CPU they run the plain versions)
+    check(dev.type != "cuda" or all(v > 0 for v in launches.values()),
+          f"{what}: a kernel of the fleet path did not launch: {launches}")
+    m1 = ingestbatch.metrics_snapshot()
+    m = {k: m1[k] - m0[k] for k in m0 if k != "occupancy"}
+    if fused:
+        check(m["flushes"] > 0 and m["failed_flushes"] == 0,
+              f"{what}: fused flushes {m}")
+    else:
+        check(m["flushes"] == 0, f"{what}: fused flushes without the knob {m}")
+    digests = snapshot_digests(Datastore(ds_dir, dedup_index_mb=0, device=dev))
+    hostile = [k for k in digests if not k.startswith("sim-")]
+    check(len(digests) == d["published"] and not hostile,
+          f"{what}: {len(digests)} snapshots, hostile ones {hostile}")
+    mib = d["published"] * cfg.files_per_agent * cfg.file_size / 2**20
+    top = metrics.HIST_BUCKETS[-1]
+    line = {"wall_s": wall, "published_mib": mib,
+            "published_mib_s": mib / wall,
+            "enqueue_to_publish_s": {
+                "p50": d["enqueue_to_publish_p50_s"],
+                "p99": d["enqueue_to_publish_p99_s"],
+                "top_bucket_s": top,
+                "p50_at_top_bucket": d["enqueue_to_publish_p50_s"] >= top,
+                "p99_at_top_bucket": d["enqueue_to_publish_p99_s"] >= top},
+            "launches": launches,
+            "launches_per_published_mib": {k: v / mib
+                                           for k, v in launches.items()},
+            "fused_flushes": {"total": m["flushes"],
+                              "linger": m["linger_flushes"],
+                              "deadline": m["deadline_flushes"],
+                              "size_or_all_deposited": m["flushes"]
+                              - m["linger_flushes"] - m["deadline_flushes"],
+                              "rows": m["rows"], "chunks": m["chunks"],
+                              "sessions_packed": m["sessions_packed"]},
+            "peak_device_mib": torch.cuda.max_memory_allocated(dev) / 2**20
+            if dev.type == "cuda" else None,
+            "report": d}
+    return line, digests
+
+
+def _fleet_cpu_run(cfg, root: str) -> tuple[dict, dict]:
+    """The first ``FLEET_SAMPLE`` agents of the fleet (the same trees:
+    ``synthetic_tree(seed, i)``), one wave, through ``run_fleet`` on the
+    CPU: ``RemoteTreeBackup`` over the agentfs wire into a port
+    ``LocalStore`` whose sessions cut with the plain K1 and hash inline
+    with hashlib (a chunker factory and no batch hasher)."""
+    from pbs_plus_tpu_torch.models import make_chunker_factory
+    from pbs_plus_tpu_torch.pxar.backupproxy import LocalStore
+    from pbs_plus_tpu_torch.pxar.datastore import Datastore
+    from pbs_plus_tpu_torch.server import fleetsim
+
+    class HashlibStore(LocalStore):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, chunker_factory=make_chunker_factory(
+                "cuda", device="cpu"), **kw)
+            check(self.batch_hasher is None, "the CPU store hashes with "
+                                             "hashlib")
+
+    fleetsim.LocalStore = HashlibStore
+    sample = fleetsim.FleetConfig(
+        n_agents=FLEET_SAMPLE, tenants=cfg.tenants,
+        max_concurrent=cfg.max_concurrent, seed=cfg.seed,
+        files_per_agent=cfg.files_per_agent, file_size=cfg.file_size,
+        chunk_avg=cfg.chunk_avg)
+    ds_dir = os.path.join(root, "ds")
+    t0 = time.perf_counter()
+    rep = fleetsim.run_fleet(ds_dir, sample, device="cpu")
+    seconds = time.perf_counter() - t0
+    check(rep.published == FLEET_SAMPLE and not rep.failures,
+          f"fleet cpu: published {rep.published}, {rep.failures}")
+    digests = snapshot_digests(Datastore(ds_dir, dedup_index_mb=0,
+                                         device="cpu"))
+    return {"agents": FLEET_SAMPLE, "seconds": seconds}, digests
+
+
+# the fleet phase's runs, each in an interpreter of its own, all started
+# at once: the metrics histograms, the trace ring, the failpoints and the
+# chunk cache are process-wide, and the later phases read them
+FLEET_RUNS = ("sessions", "fused", "multiproc", "cpu")
+FLEET_TIMEOUT = 600.0
+
+
+def fleet_child(kind: str, root: str) -> int:
+    """One of ``FLEET_RUNS`` (``main`` has set the phase's sizes): writes
+    ``{"line": ..., "digests": ...}`` (or ``{"error": ...}``) to
+    ``root/out.json``."""
+    from pbs_plus_tpu_torch.server import fleetsim
+
+    out = os.path.join(root, "out.json")
+    cfg = fleet_config(fleetsim.FleetConfig)
+    try:
+        if kind == "multiproc":
+            res = {"line": fleet_multiproc(torch.device(DEVICE), root)}
+        elif kind == "cpu":
+            line, digests = _fleet_cpu_run(cfg, root)
+            res = {"line": line, "digests": digests}
+        else:
+            line, digests = _fleet_run(torch.device(DEVICE), cfg, root,
+                                       kind == "fused")
+            res = {"line": line, "digests": digests}
+    except CheckFailed as e:
+        res = {"error": str(e)}
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0 if "line" in res else 1
+
+
+def fleet_phase(dev, root: str) -> dict:
+    """The fleet on the card: the JAX package's N=500 survival soak
+    (``run_fleet``) twice, per-session K2 flushes and then
+    ``PBS_PLUS_FUSED_INGEST=1``, both held to the soak's assertions and
+    to each other's chunk digests, the first 16 agents' to a CPU
+    fleet's; and the two-process shared datastore
+    (``run_multiproc_fleet``: two ``fleetproc`` workers on the card over
+    one datastore and one SQLite database, the GC leader SIGKILLed) held
+    to ``test_multiproc.py``'s assertions.  The four runs are
+    ``fleet_child`` interpreters, started together; each is its own
+    process group, killed whole at the end."""
+    import signal
+    from pbs_plus_tpu_torch.server import fleetsim
+
+    t_phase = time.perf_counter()
+    cfg = fleet_config(fleetsim.FleetConfig)
+    out = {"phase": "fleet", "config": {
+        "n_agents": cfg.n_agents, "tenants": cfg.tenants,
+        "max_concurrent": cfg.max_concurrent, "max_queued": cfg.max_queued,
+        "jobs_per_agent": cfg.jobs_per_agent, "files_per_agent":
+        cfg.files_per_agent, "file_size": cfg.file_size,
+        "chunk_avg": cfg.chunk_avg, "restore_jobs": cfg.restore_jobs,
+        "verify_jobs": cfg.verify_jobs, "sync_jobs": cfg.sync_jobs,
+        "hostile_profiles": cfg.hostile_profiles,
+        "readserve": [cfg.readserve_readers, cfg.readserve_reads]},
+        "runs": "concurrent, one interpreter each", "survival": {}}
+    sizes = json.dumps({k: globals()[k] for k in (
+        "DEVICE", "FLEET_AGENTS", "FLEET_FILES", "FLEET_FILE_BYTES",
+        "FLEET_CHUNK_AVG", "FLEET_SAMPLE", "FLEET_MP_AGENTS")})
+    procs, res = {}, {}
+    try:
+        for kind in FLEET_RUNS:
+            d = os.path.join(root, kind)
+            os.makedirs(d)
+            with open(os.path.join(d, "log"), "w") as log:
+                procs[kind] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--fleet-child", kind, d, sizes],
+                    cwd=ROOT, stdin=subprocess.DEVNULL, stdout=log,
+                    stderr=subprocess.STDOUT, start_new_session=True)
+        t_end = time.monotonic() + FLEET_TIMEOUT
+        for kind, p in procs.items():
+            try:
+                rc = p.wait(timeout=max(1.0, t_end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            d = os.path.join(root, kind)
+            try:
+                with open(os.path.join(d, "out.json")) as f:
+                    res[kind] = json.load(f)
+            except OSError:
+                res[kind] = {}
+            check(rc == 0 and "line" in res[kind],
+                  f"fleet {kind}: exit {rc}: "
+                  f"{res[kind].get('error') or _tail(os.path.join(d, 'log'))}")
+    finally:
+        for p in procs.values():
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+    print(f"fleet: runs done in {time.perf_counter() - t_phase:.1f} s",
+          file=sys.stderr, flush=True)
+    for name in ("sessions", "fused"):
+        out["survival"][name] = res[name]["line"]
+    runs = {name: res[name]["digests"] for name in ("sessions", "fused")}
+    check(runs["sessions"] == runs["fused"],
+          "fleet: the fused run's snapshots differ from the sessions run's: "
+          f"{sorted(k for k in runs['sessions'] if runs['sessions'][k] != runs['fused'].get(k))[:5]}")
+    cpu = res["cpu"]["digests"]
+    check(sorted(cpu) == [f"sim-{i:04d}#0" for i in range(FLEET_SAMPLE)],
+          f"fleet: the CPU fleet's snapshots {sorted(cpu)[:4]}")
+    for k in cpu:
+        check(cpu[k] == runs["sessions"][k],
+              f"fleet: {k}'s snapshot on the card != the CPU fleet's")
+    out["cpu_sample"] = dict(res["cpu"]["line"], equal=True)
+    out["multiproc"] = res["multiproc"]["line"]
+    out["launches"] = {k: sum(r["launches"][k]
+                              for r in out["survival"].values())
+                       + sum(w[k] for w in
+                             out["multiproc"]["worker_launches"].values())
+                       for k in ("candidate_mask", "sha256_chunks",
+                                 "cuckoo_probe")}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# loaded first by every fleetproc worker of the phase (a sitecustomize on
+# PYTHONPATH): an import of jax or of the JAX package raises and is
+# written down; the machine's own sitecustomize, if any, runs after it
+_WORKER_GATE = r'''
+import os, sys
+
+_BLOCKED = ("jax", "jaxlib", "pbs_plus_tpu")
+_HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in _BLOCKED:
+            with open(os.path.join(_HERE, "blocked.txt"), "a") as f:
+                f.write(f"{os.getpid()} {name}\n")
+            raise ImportError("blocked in a fleetproc worker: " + name)
+        return None
+
+
+sys.meta_path.insert(0, _Block())
+for _d in sys.path:
+    _f = os.path.join(_d or ".", "sitecustomize.py")
+    if os.path.abspath(_d or ".") != _HERE and os.path.isfile(_f):
+        with open(_f) as _src:
+            exec(compile(_src.read(), _f, "exec"),
+                 {"__name__": "sitecustomize", "__file__": _f})
+        break
+'''
+
+
+def fleet_multiproc(dev, root: str) -> dict:
+    """``run_multiproc_fleet`` with ``tests/fleet/test_multiproc.py``'s
+    composition (lines 64-78) at ``FLEET_MP_AGENTS`` agents a worker and
+    the fleet's bytes, on the card; that test's assertions.  The workers
+    run with jax and the JAX package unimportable (``_WORKER_GATE``)."""
+    from pbs_plus_tpu_torch.server import fleetsim
+
+    cfg = fleetsim.MultiProcConfig(
+        n_agents=FLEET_MP_AGENTS, files_per_agent=FLEET_FILES,
+        file_size=FLEET_FILE_BYTES, chunk_avg=FLEET_CHUNK_AVG,
+        shared_fraction=0.5, gc_ttl_s=2.0, kill_slow_sweep_s=8.0,
+        kill_leader=True, jobs_per_agent=2,
+        restore_jobs=min(4, FLEET_MP_AGENTS),
+        verify_jobs=min(4, FLEET_MP_AGENTS), sync_jobs=2,
+        hostile_agents=5, hostile_profiles=FLEET_PROFILES,
+        tenant_weights="tenant-0=3", admission_deadline_ms=500.0,
+        reservation_ttl_s=1.0, fair_probe=True, deadline_probe=True)
+    site = os.path.join(root, "site")
+    os.makedirs(site)
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(_WORKER_GATE)
+    path0 = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = site + (os.pathsep + path0 if path0 else "")
+    t0 = time.perf_counter()
+    try:
+        rep = fleetsim.run_multiproc_fleet(root, cfg, device=dev)
+    finally:
+        if path0 is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = path0
+    seconds = time.perf_counter() - t0
+    print(f"fleet multiproc: returned in {seconds:.1f} s", file=sys.stderr,
+          flush=True)
+    blocked = os.path.join(site, "blocked.txt")
+    check(not os.path.exists(blocked),
+          "fleet multiproc: a worker imported jax or the JAX package")
+    d = rep.to_dict()
+    n = cfg.n_agents
+    what = "fleet multiproc"
+    check(d["published"] == cfg.processes * n * cfg.jobs_per_agent
+          and d["failed"] == 0 and d["queue_counts"].get("queued", 0) == 0
+          and d["queue_counts"].get("running", 0) == 0,
+          f"{what}: published {d['published']}, failures "
+          f"{dict(list(rep.failures.items())[:5])}, queue {d['queue_counts']}")
+    check(d["restore_completed"] == cfg.restore_jobs
+          and d["restore_failed"] == 0
+          and d["verify_completed"] == cfg.verify_jobs
+          and d["verify_failed"] == 0
+          and d["sync_completed"] == cfg.sync_jobs and d["sync_failed"] == 0,
+          f"{what}: lanes {d}")
+    check(d["hostile_run"] == cfg.hostile_agents
+          and d["hostile_liar_published"] == 0
+          and d["hostile_liar_errors"] >= 1
+          and "StreamLengthError" in " ".join(rep.hostile_liar_errors)
+          and d["stream_length_violations"] >= 1 and d["evictions"] >= 1
+          and d["reservations_reaped"] >= cfg.hostile_slowloris_rounds
+          and not any(j.startswith("liar-") for j in rep.failures),
+          f"{what}: hostiles {d}")
+    check(rep.fair_order and fair_shares(
+        rep.fair_order, 12, {"fp-heavy": 3, "fp-mid": 2, "fp-light": 1})
+        and set(rep.fair_order) == {"fp-heavy", "fp-mid", "fp-light"}
+        and sum(sum(g.values()) for g in d["tenant_grants"].values()) > 0,
+        f"{what}: fair order {rep.fair_order}")
+    check(all(0 < p99 <= 60.0 for p99 in d["enqueue_p99"].values()),
+          f"{what}: enqueue p99 {d['enqueue_p99']}")
+    check(d["written_once"] and d["cross_process_hits"] > 0
+          and d["distinct_chunks_after"] > 0,
+          f"{what}: written once {d['written_once']}, chunks "
+          f"{d['chunks_written_total']} vs {d['distinct_chunks_after']} + "
+          f"{d['chunks_removed_total']}, cross hits {d['cross_process_hits']}")
+    check(d["gc_swept"] == d["gc_cycles"]
+          and d["gc_held"] == d["gc_cycles"] * (cfg.processes - 1),
+          f"{what}: GC outcomes {d['gc_outcomes']}")
+    check(d["leader_killed"] and d["failover_outcome"] == "swept"
+          and d["failover_s"] <= cfg.gc_ttl_s + 2.0
+          and d["steals_total"] >= 1,
+          f"{what}: failover {d['leader_killed']} {d['failover_outcome']} "
+          f"{d['failover_s']} s, steals {d['steals_total']}")
+    check(d["doomed_on_disk"] == 0 and d["doomed_resurrected"] == 0
+          and d["live_missing"] == 0,
+          f"{what}: doomed on disk {d['doomed_on_disk']}, resurrected "
+          f"{d['doomed_resurrected']}, live missing {d['live_missing']}")
+    check(d["deadline_rejects_seen"] >= 1
+          and d["deadline_rejects_counted"] >= 1,
+          f"{what}: deadline rejects {d['deadline_rejects_seen']}/"
+          f"{d['deadline_rejects_counted']}")
+    survivor = [p for p in d["service_lock_wait"] if p != d["leader_killed"]]
+    check(len(survivor) == 1
+          and d["service_lock_wait"][survivor[0]]["prune"]["count"] > 0
+          and d["service_lock_wait"][survivor[0]]["jobqueue"]["count"] > 0,
+          f"{what}: lock waits {d['service_lock_wait']}")
+    launches = d["launches"]
+    check(set(launches) == {"p0", "p1"} and (dev.type != "cuda" or (
+          all(v > 0 for w in launches.values()
+                  for k, v in w.items() if k != "cuckoo_probe")
+          and sum(w["cuckoo_probe"] for w in launches.values()) > 0)),
+          f"{what}: a kernel of a worker did not launch: {launches}")
+    return {"seconds": seconds, "agents_per_worker": n,
+            "published": d["published"],
+            "published_mib": d["published"] * cfg.files_per_agent
+            * cfg.file_size / 2**20,
+            "worker_launches": launches, "gc_outcomes": d["gc_outcomes"],
+            "workers": "pbs_plus_tpu_torch.server.fleetproc, jax and "
+                       "pbs_plus_tpu blocked",
+            "failover_s": d["failover_s"], "steals": d["steals_total"],
+            "chunks_written": d["chunks_written_total"],
+            "cross_process_hits": d["cross_process_hits"],
+            "distinct_chunks_after": d["distinct_chunks_after"],
+            "chunks_removed": d["chunks_removed_total"],
+            "enqueue_p99_s": d["enqueue_p99"], "report": d}
 
 
 def k2_chain_ms(length: int, clock_hz: float) -> float:
@@ -3837,11 +4345,38 @@ def parallel_phase(dev, P, streams: dict, dstream, step_bounds: list,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fleet-child", nargs=3, metavar=("RUN", "DIR", "SIZES"),
+                    help="one run of the fleet phase (the phase starts "
+                         "these itself)")
+    ap.add_argument("--fleet-only", type=int, default=0, metavar="N",
+                    help="build the kernels and run only the fleet phase, "
+                         "N times, going on past a failed run (its line "
+                         "then has \"failed\"); exit 1 if any failed")
     args = ap.parse_args()
+    if args.fleet_child:
+        globals().update(json.loads(args.fleet_child[2]))
     if DEVICE == "cuda" and not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no result",
               file=sys.stderr)
         return 2
+    if args.fleet_child:
+        return fleet_child(*args.fleet_child[:2])
+    if args.fleet_only:
+        from pbs_plus_tpu_torch.ops import _build
+        emit({"phase": "build", "seconds": _build.build(),
+              "card": smi("name,power.limit")})
+        failed = 0
+        os.makedirs(SCRATCH, exist_ok=True)
+        for r in range(args.fleet_only):
+            root = tempfile.mkdtemp(prefix="fleet-", dir=SCRATCH)
+            try:
+                emit(dict(fleet_phase(torch.device(DEVICE), root), run=r))
+            except CheckFailed as e:
+                failed += 1
+                emit({"phase": "fleet", "run": r, "failed": str(e)})
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+        return 1 if failed else 0
     wire = sidecar_wire()       # the sidecar phase's transport, decided once
 
     from pbs_plus_tpu_torch.chunker.spec import (DEFAULT_PARAMS, TEST_PARAMS,
@@ -4240,6 +4775,14 @@ def main() -> int:
             emit(tape_line)
         finally:
             shutil.rmtree(tape_root, ignore_errors=True)
+        # the fleet: 500 loopback agents through run_fleet, then two
+        # fleetproc workers over one datastore
+        fleet_root = tempfile.mkdtemp(prefix="fleet-", dir=SCRATCH)
+        try:
+            fleet_line = fleet_phase(dev, fleet_root)
+            emit(fleet_line)
+        finally:
+            shutil.rmtree(fleet_root, ignore_errors=True)
         ver_line = verification_phase(dev, stores, clock_hz)
         emit(ver_line)
         sync_line = sync_phase(dev, stores, store_root)
@@ -4737,6 +5280,7 @@ def main() -> int:
          "fused_ingest_launches": fused["launches"]["cuckoo_probe"],
          "store_launches": store_launches["cuckoo_probe"],
          "tape_launches": tape_line["launches"]["cuckoo_probe"],
+         "fleet_launches": fleet_line["launches"]["cuckoo_probe"],
          "mount_launches": mount_line["launches"]["cuckoo_probe"],
          "backup_job_launches": job_line["launches"]["cuckoo_probe"],
          "server_launches": server_line["launches"]["cuckoo_probe"],
@@ -4826,6 +5370,7 @@ def main() -> int:
              "fused_ingest": fused["launches"]["candidate_mask"],
              "store": store_launches["candidate_mask"],
              "tape": tape_line["launches"]["candidate_mask"],
+             "fleet": fleet_line["launches"]["candidate_mask"],
              "mount": mount_line["launches"]["candidate_mask"],
              "backup_job": job_line["launches"]["candidate_mask"],
              "server": server_line["launches"]["candidate_mask"],
@@ -4846,6 +5391,7 @@ def main() -> int:
              "fused_ingest": fused["launches"]["sha256_chunks"],
              "store": store_launches["sha256_chunks"],
              "tape": tape_line["launches"]["sha256_chunks"],
+             "fleet": fleet_line["launches"]["sha256_chunks"],
              "verification": ver_launches,
              "mount": mount_line["launches"]["sha256_chunks"],
              "backup_job": job_line["launches"]["sha256_chunks"],

@@ -16,7 +16,8 @@ CUDA (``--device cpu`` runs the plain versions).  The flags are the JAX
 package's ``server`` flags plus ``--device``; ``--chunker`` defaults to
 ``cuda`` (the reference's to ``cpu``, which the port does not serve),
 and the log (to stderr at INFO, and to ``--log-file`` where given) is
-plain text lines, where the reference's log module writes JSON.  ``--print-token`` prints a bootstrap token and
+the reference's: one JSON object a line with its dedup window
+(``utils/log.py``).  ``--print-token`` prints a bootstrap token and
 an API token (``token_id:secret_hex``).
 
     python -m pbs_plus_tpu_torch agent --server 127.0.0.1:8008 \
@@ -110,20 +111,11 @@ import sys
 
 from .parallel.dist_index import add_shard_arguments
 
-_LOG_FORMAT = "%(asctime)s %(levelname)s %(name)s %(message)s"
-
-
 def _log_to_stderr():
-    """The package's log at INFO on stderr, as the reference's log module
-    sets up its own at import."""
-    import logging
-    log = logging.getLogger("pbs_plus_tpu_torch")
-    if not log.handlers:
-        h = logging.StreamHandler(sys.stderr)
-        h.setFormatter(logging.Formatter(_LOG_FORMAT))
-        log.addHandler(h)
-        log.setLevel(logging.INFO)
-    return log
+    """The package's log at INFO on stderr, JSON lines with the dedup
+    window, as the reference's log module sets up its own at import."""
+    from .utils import log
+    return log.install()
 
 
 def _cmd_server(args: argparse.Namespace) -> int:
@@ -137,16 +129,10 @@ def _cmd_server(args: argparse.Namespace) -> int:
     from .server.web import start_web
     from .utils.device import CudaUnavailableError
 
-    log = _log_to_stderr()
+    _log_to_stderr()
     if args.log_file:
-        import logging
-        import logging.handlers
-        path = os.path.abspath(args.log_file)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        h = logging.handlers.RotatingFileHandler(
-            path, maxBytes=50 << 20, backupCount=5)
-        h.setFormatter(logging.Formatter(_LOG_FORMAT))
-        log.addHandler(h)
+        from .utils.log import add_rotating_file
+        add_rotating_file(args.log_file)
 
     async def main():
         try:

@@ -22,9 +22,13 @@ index is the port's ``chunkindex.DedupIndex``, the delta tier's the
 port's ``similarityindex.SimilarityIndex``, and
 ``PBS_PLUS_DIST_INDEX_SHARDS`` builds the port's
 ``parallel.dist_index.DistIndexClient``), its logger (``logging``), and
-one change: ``device=`` (default ``"cuda"``) threads through
+two changes: ``device=`` (default ``"cuda"``) threads through
 ``Datastore`` and ``ChunkStore`` into the index and the similarity index
-the store builds."""
+the store builds; and ``list_snapshots`` skips a session's staging dir
+(``<time>.tmp.<pid>.<id>``), which holds its manifest for a moment
+before the rename that publishes it: a sync listing the store in that
+moment took it for a snapshot and failed on its rename (a race of the
+reference that a fleet of hundreds of sessions beside sync jobs meets)."""
 
 from __future__ import annotations
 
@@ -1571,6 +1575,8 @@ class Datastore:
                     if not os.path.isdir(iddir):
                         continue
                     for ts in sorted(os.listdir(iddir)):
+                        if ".tmp." in ts:
+                            continue        # a session's staging dir
                         snap = os.path.join(iddir, ts)
                         if os.path.exists(os.path.join(snap, self.MANIFEST)):
                             out.append(SnapshotRef(t, bid, ts, ns))

@@ -12,6 +12,12 @@ store.go:21 crypto.Seal).
 A copy of the JAX package's ``server/database.py``, its code byte for
 byte apart from its imports, which name the port's own modules: the same
 schema and migrations, so either package opens a file the other wrote.
+One change: ``Database`` retries the switch to WAL while it fails with
+"database is locked", within the connection's 10 s timeout.  Two
+processes opening one fresh database at once (two ``fleetproc``
+workers, two servers cold-starting on one shared datastore) make the
+switch fail at once in one of them about a third of the time: SQLite
+calls no busy handler there, and the reference raises.
 """
 
 from __future__ import annotations
@@ -280,7 +286,15 @@ class Database:
         self._conn = sqlite3.connect(path, check_same_thread=False,
                                      timeout=10.0)
         self._conn.row_factory = sqlite3.Row
-        self._conn.execute("PRAGMA journal_mode=WAL")
+        deadline = time.monotonic() + 10.0
+        while True:
+            try:
+                self._conn.execute("PRAGMA journal_mode=WAL")
+                break
+            except sqlite3.OperationalError as e:
+                if "locked" not in str(e) or time.monotonic() > deadline:
+                    raise
+                time.sleep(0.01)
         self._conn.execute("PRAGMA foreign_keys=ON")
         self._lock = threading.RLock()
         self._seal_key = seal_key

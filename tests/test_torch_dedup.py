@@ -300,6 +300,9 @@ new = {"pbs_plus_tpu_torch." + m for m in (
     "agent.win.restore", "operator", "operator.kube", "operator.leader",
     "operator.operator", "operator.__main__")}
 assert new <= set(mods), sorted(new - set(mods))
+fleet = {"pbs_plus_tpu_torch." + m for m in (
+    "server.fleetsim", "server.fleetproc", "utils.log")}
+assert fleet <= set(mods), sorted(fleet - set(mods))
 import contextlib, io
 from pbs_plus_tpu_torch.__main__ import main as port_main
 from pbs_plus_tpu_torch.tapeio import (convert_mtf_to_snapshot,
@@ -332,7 +335,7 @@ def test_port_imports_without_jax_or_reference():
     r = subprocess.run([sys.executable, "-c", _GATE], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 151
+    assert int(r.stdout.split()[-1]) >= 154
 
 
 _STORE_GATE = r"""
@@ -819,7 +822,7 @@ def test_no_import_of_jax_or_reference_anywhere_in_the_port():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for dp, _dn, fn in os.walk(os.path.join(REPO, "pbs_plus_tpu_torch")):
         files += [os.path.join(dp, f) for f in fn if f.endswith(".py")]
-    assert len(files) >= 153
+    assert len(files) >= 156
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imports_of(f)
            if m.split(".")[0] in ("jax", "jaxlib", "pbs_plus_tpu")]
